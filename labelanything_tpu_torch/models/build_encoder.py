@@ -1,0 +1,37 @@
+"""SAM ViT encoder builders (counterpart of
+``labelanything_tpu/models/build_encoder.py``; reference:
+label_anything/models/build_encoder.py). ViT-L and ViT-H are listed with
+their widths but not built yet: ViT-H's head width 80 needs the packed
+kernel, which is still to be ported."""
+
+from __future__ import annotations
+
+import torch
+
+from .image_encoder import ImageEncoderViT
+
+vit_configs = dict(
+    vit_h=dict(embed_dim=1280, depth=32, num_heads=16,
+               global_attn_indexes=(7, 15, 23, 31)),
+    vit_l=dict(embed_dim=1024, depth=24, num_heads=16,
+               global_attn_indexes=(5, 11, 17, 23)),
+    vit_b=dict(embed_dim=768, depth=12, num_heads=12,
+               global_attn_indexes=(2, 5, 8, 11)),
+)
+
+SAM_IMAGE_SIZE = 1024
+SAM_PATCH_SIZE = 16
+PROMPT_EMBED_DIM = 256
+
+
+def build_vit_b(project_last_hidden: bool = True,
+                image_size: int = SAM_IMAGE_SIZE,
+                dtype: torch.dtype = torch.float32) -> ImageEncoderViT:
+    cfg = vit_configs["vit_b"]
+    return ImageEncoderViT(
+        img_size=image_size, patch_size=SAM_PATCH_SIZE,
+        embed_dim=cfg["embed_dim"], depth=cfg["depth"],
+        num_heads=cfg["num_heads"], mlp_ratio=4, out_chans=PROMPT_EMBED_DIM,
+        qkv_bias=True, window_size=14,
+        global_attn_indexes=cfg["global_attn_indexes"],
+        project_last_hidden=project_last_hidden, dtype=dtype)

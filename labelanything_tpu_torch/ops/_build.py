@@ -1,0 +1,111 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``labelanything_tpu_torch/csrc/`` are compiled by ``nvcc``
+for Hopper (``sm_90a``) into one shared library with a plain C interface,
+``build/kernels/relpos_<hash>.so`` at the repository root, where ``<hash>``
+covers the sources and the compiler flags. The library is built at first
+use, loaded with ``ctypes`` and cached for the process. Nothing here runs
+at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
+SOURCES = ("relpos_global.cu", "relpos_window.cu")
+HEADERS = ("relpos_common.cuh", "relpos_mma.cuh")
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# seconds the last build took in this process (0.0 when the library was
+# already on disk) and the compiler's output (register / spill report)
+build_seconds = 0.0
+build_log = ""
+
+
+def _cuda_home() -> Optional[str]:
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            return os.environ[var]
+    from torch.utils import cpp_extension
+
+    return cpp_extension.CUDA_HOME
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin/nvcc``, else the one on PATH."""
+    home = _cuda_home()
+    if home and (Path(home) / "bin" / "nvcc").is_file():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "nvcc was not found (looked in $CUDA_HOME/bin and on PATH); the "
+        "labelanything_tpu_torch CUDA kernels are compiled at first use and "
+        "need the CUDA toolkit. CPU tensors use the plain PyTorch versions.")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name in ("la_relpos_global", "la_relpos_window"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.restype = i
+    lib.la_error_string.argtypes = [i]
+    lib.la_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library."""
+    global _lib, build_seconds, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        target = BUILD_DIR / f"relpos_{_source_hash()}.so"
+        if not target.exists():
+            nvcc = find_nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+                   *(str(CSRC_DIR / s) for s in SOURCES)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_seconds = time.perf_counter() - t0
+            build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{build_log}")
+            os.replace(tmp, target)
+        _lib = _declare(ctypes.CDLL(str(target)))
+        return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.la_error_string(err).decode()
+        raise RuntimeError(f"{what} failed to launch: CUDA error {err} ({msg})")

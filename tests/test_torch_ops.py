@@ -1,0 +1,177 @@
+"""The PyTorch port's ops against the JAX package's, on the CPU.
+
+The rel-pos attention wrappers take their plain PyTorch twins for CPU
+tensors; those twins are held against the JAX Pallas kernels in interpret
+mode and against the JAX plain reference ``_lanes_xla_ref``. Inputs come
+from seeded numpy arrays fed to both sides.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from labelanything_tpu.data.synthetic import random_batch as j_random_batch
+from labelanything_tpu.ops import flash_attention as jfa
+from labelanything_tpu.ops.attention import dot_product_attention as j_attention
+from labelanything_tpu.ops.image_norm import normalize_images as j_normalize
+from labelanything_tpu.ops.resize import resize_bilinear as j_resize
+from labelanything_tpu_torch.data.synthetic import random_batch
+from labelanything_tpu_torch.ops import _build
+from labelanything_tpu_torch.ops import flash_attention as tfa
+from labelanything_tpu_torch.ops.attention import dot_product_attention
+from labelanything_tpu_torch.ops.image_norm import maybe_normalize_images
+from labelanything_tpu_torch.ops.resize import resize_bilinear
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _relpos_inputs(b, grid_hw, heads, seed):
+    kh, kw = grid_hw
+    n, c = kh * kw, heads * 64
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((b, n, 3 * c)).astype(np.float32)
+    r = rng.standard_normal((b, n, heads * (kh + kw))).astype(np.float32)
+    return qkv, r
+
+
+def _pallas_interpret(fn, *args):
+    """Run a JAX Pallas kernel in interpret mode with 256-row blocks, as
+    the JAX package's own kernel tests do."""
+    old = jfa._INTERPRET, jfa._BLOCK_Q, jfa._BLOCK_K
+    jfa._INTERPRET, jfa._BLOCK_Q, jfa._BLOCK_K = True, 256, 256
+    try:
+        return np.asarray(fn(*args))
+    finally:
+        jfa._INTERPRET, jfa._BLOCK_Q, jfa._BLOCK_K = old
+
+
+@pytest.mark.parametrize("kind,b,grid_hw,heads", [
+    ("global", 2, (48, 16), 2),
+    ("global", 2, (16, 48), 2),
+    ("window", 4, (14, 14), 2),
+])
+def test_relpos_plain_twin_matches_jax(kind, b, grid_hw, heads):
+    jfn, tfn = {
+        "global": (jfa.flash_attention_relpos_lanes,
+                   tfa.flash_attention_relpos_lanes),
+        "window": (jfa.flash_attention_relpos_lanes_batched,
+                   tfa.flash_attention_relpos_lanes_batched),
+    }[kind]
+    qkv, r = _relpos_inputs(b, grid_hw, heads, seed=9)
+    scale = 64 ** -0.5
+    ours = tfn(torch.from_numpy(qkv), torch.from_numpy(r), scale, grid_hw,
+               heads).numpy()
+    kernel = _pallas_interpret(jfn, jnp.asarray(qkv), jnp.asarray(r), scale,
+                               grid_hw, heads)
+    ref = np.asarray(jfa._lanes_xla_ref(jnp.asarray(qkv), jnp.asarray(r),
+                                        scale, grid_hw, heads))
+    np.testing.assert_allclose(ours, kernel, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(ours, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("fn", [tfa.flash_attention_relpos_lanes,
+                                tfa.flash_attention_relpos_lanes_batched])
+def test_relpos_wrappers_reject_bad_shapes(fn):
+    qkv, r = _relpos_inputs(1, (4, 4), 2, seed=0)
+    qkv, r = torch.from_numpy(qkv), torch.from_numpy(r)
+    with pytest.raises(ValueError, match="head width"):
+        fn(qkv[..., :3 * 2 * 32], r, 0.125, (4, 4), 2)   # dh = 32
+    with pytest.raises(ValueError, match="kh \\* kw"):
+        fn(qkv, r, 0.125, (4, 5), 2)
+    with pytest.raises(TypeError):
+        fn(qkv.double(), r.double(), 0.125, (4, 4), 2)
+
+
+def test_build_without_nvcc_raises_clear_error(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_cuda_home", lambda: None)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        _build.load()
+
+
+def test_port_imports_no_jax():
+    """The port and its slice modules load neither JAX, flax, PIL nor the
+    JAX package itself, so the port runs where none of them is installed."""
+    modules = ["labelanything_tpu_torch", "labelanything_tpu_torch.api",
+               "labelanything_tpu_torch.data.synthetic",
+               "labelanything_tpu_torch.models.registry",
+               "labelanything_tpu_torch.ops.flash_attention",
+               "labelanything_tpu_torch.ops._build",
+               "labelanything_tpu_torch.utils.weights"]
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in modules)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            + "       ('jax', 'flax', 'PIL', 'labelanything_tpu')]\n"
+            + "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(),
+    dict(batch_size=1, num_examples=5, num_classes=2, with_images=True,
+         image_size=64, seed=1),
+    dict(num_examples=2, num_classes=3, include_points=False, seed=4),
+    dict(include_boxes=False, include_masks=False, gt_size=32, seed=5),
+])
+def test_random_batch_matches_jax_package(kwargs):
+    """The port's episode generator gives the JAX package's episode."""
+    ours = random_batch(**kwargs)
+    ref = j_random_batch(**kwargs)
+    assert sorted(ours) == sorted(ref)
+    for key, value in ref.items():
+        assert ours[key].dtype == value.dtype, key
+        np.testing.assert_array_equal(ours[key], value, err_msg=key)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((13, 17), (29, 31)),
+                                          ((64, 64), (16, 16)),
+                                          ((30, 30), (120, 120))])
+def test_resize_bilinear_matches_jax(in_hw, out_hw):
+    x = np.random.default_rng(0).standard_normal((2, 3) + in_hw).astype(
+        np.float32)
+    ours = resize_bilinear(torch.from_numpy(x), out_hw).numpy()
+    np.testing.assert_allclose(ours, np.asarray(j_resize(jnp.asarray(x),
+                                                         out_hw)),
+                               rtol=1e-5, atol=1e-5)
+    xc = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    ours = resize_bilinear(torch.from_numpy(xc), out_hw,
+                           spatial_axes=(1, 2)).numpy()
+    ref = np.asarray(j_resize(jnp.asarray(xc), out_hw, spatial_axes=(1, 2)))
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("custom", [True, False])
+def test_image_normalization_matches_jax(custom):
+    rng = np.random.default_rng(21)
+    images = rng.integers(0, 256, (2, 3, 64, 64, 3), dtype=np.uint8)
+    dims = rng.integers(20, 200, (2, 3, 2)).astype(np.int32)
+    ours = maybe_normalize_images(torch.from_numpy(images),
+                                  torch.from_numpy(dims), 64, custom).numpy()
+    ref = np.asarray(j_normalize(jnp.asarray(images), jnp.asarray(dims), 64,
+                                 custom_preprocess=custom))
+    np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=1e-6)
+    floats = images.astype(np.float32)
+    passed = maybe_normalize_images(torch.from_numpy(floats),
+                                    torch.from_numpy(dims), 64, custom)
+    np.testing.assert_array_equal(passed.numpy(), floats)
+
+
+def test_attention_matches_jax():
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.standard_normal((2, 4, n, 16)).astype(np.float32)
+               for n in (9, 11, 11))
+    ours = dot_product_attention(*map(torch.from_numpy, (q, k, v))).numpy()
+    ref = np.asarray(j_attention(*map(jnp.asarray, (q, k, v))))
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
