@@ -1,8 +1,8 @@
 """Public model API (counterpart of ``labelanything_tpu/api.py``; reference:
 label_anything/models/build_lam.py:402-508).
 
-``LabelAnything`` builds a model from a config onto an explicit device and
-serves it:
+``LabelAnything`` builds a model from a config onto a device (the first
+CUDA card unless the caller names another, such as ``"cpu"``) and serves it:
 
     la = LabelAnything(config, device="cuda", seed=0)   # seeded weights
     embeddings = la.generate_class_embeddings(support_batch)
@@ -42,26 +42,35 @@ def build_from_config(config: Dict[str, Any]) -> Lam:
     return build_lam(**args)
 
 
+def build_on_device(config: Dict[str, Any],
+                    device: Union[str, torch.device] = "cuda",
+                    seed: Optional[int] = 0) -> Lam:
+    """The model of ``config`` built straight on ``device`` (no CPU copy
+    first). With a ``seed`` the weights come from :func:`init_weights`; with
+    ``seed=None`` they are left unset for a following ``load_state_dict``."""
+    with torch.device("meta"):
+        model = build_from_config(config)
+    model = model.to_empty(device=torch.device(device))
+    if seed is not None:
+        init_weights(model, seed)
+    return model
+
+
 class LabelAnything:
     """Model bundle with the reference's serving surface."""
 
     def __init__(self, config: Dict[str, Any],
-                 device: Union[str, torch.device] = "cpu",
+                 device: Union[str, torch.device] = "cuda",
                  seed: Optional[int] = 0):
-        """Build on ``device``. With a ``seed`` the weights come from
-        :func:`init_weights`; with ``seed=None`` they are left unset for a
-        following :meth:`load_state_dict`."""
+        """Build on ``device`` (see :func:`build_on_device`), in ``eval()``
+        mode."""
         self.config = dict(config)
         self.device = torch.device(device)
-        with torch.device("meta"):
-            model = build_from_config(self.config)
-        self.model = model.to_empty(device=self.device).eval()
-        if seed is not None:
-            init_weights(self.model, seed)
+        self.model = build_on_device(self.config, self.device, seed).eval()
 
     @classmethod
     def from_jax_params(cls, config: Dict[str, Any], params: Dict[str, Any],
-                        device: Union[str, torch.device] = "cpu"
+                        device: Union[str, torch.device] = "cuda"
                         ) -> "LabelAnything":
         """The model with the JAX package's parameters (numpy leaves)."""
         la = cls(config, device, seed=None)

@@ -17,10 +17,12 @@
 //   relpos_mma.cuh). The work is 4 N^2 dh flops per head against 6 N dh
 //   bytes of q, K and V, 2 N / 3 flops per byte (about 2700 at N = 4096):
 //   bound by operations, not by device memory. What holds it below the
-//   tensor-core rate is latency:
-//   K/V tiles are loaded synchronously (every warp waits at the barrier)
-//   and re-read from L2 by each of the N/64 query tiles. Next steps:
-//   cp.async / TMA double buffering, then wgmma.
+//   tensor-core rate: mma.sync with four warps a block, and every warp
+//   waits at a barrier for each K/V tile (copied with cp.async, all of a
+//   thread's 16-byte copies in flight at once), which each of the N/64
+//   query tiles re-reads from L2. Copying the next tile during this one's
+//   arithmetic (two stages) was tried and was no faster: it costs a third
+//   of the resident blocks. Next steps: larger query tiles, then wgmma.
 // * fp32: relpos_global_kernel on the CUDA cores. Each key tile sits in
 //   shared memory (K transposed, V row-major); warp w owns query rows
 //   8w..8w+7, lane l owns keys l and l+32 of the tile for the scores and
@@ -50,7 +52,8 @@ __host__ __device__ inline size_t global_smem_floats(int rr) {
 __global__ void __launch_bounds__(kThreads)
     relpos_global_kernel(const float* __restrict__ qkv,
                          const float* __restrict__ r, float* __restrict__ out,
-                         int n, int heads, int kh, int kw, float qscale) {
+                         float* __restrict__ lse, int n, int heads, int kh,
+                         int kw, float qscale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int rr = kh + kw;
@@ -181,13 +184,15 @@ __global__ void __launch_bounds__(kThreads)
       float* orow = out + ((long long)b * n + qi) * c + h * kDh;
       orow[lane] = o0[i] * inv;
       orow[lane + 32] = o1[i] * inv;
+      if (lse != nullptr && lane == 0)
+        lse[((long long)b * heads + h) * n + qi] = m[i] + log2f(l[i]);
     }
   }
 }
 
-cudaError_t launch_global(const void* qkv, const void* r, void* out, int b,
-                          int n, int heads, int kh, int kw, float qscale,
-                          cudaStream_t stream) {
+cudaError_t launch_global(const void* qkv, const void* r, void* out,
+                          float* lse, int b, int n, int heads, int kh, int kw,
+                          float qscale, cudaStream_t stream) {
   const size_t smem = global_smem_floats(kh + kw) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       relpos_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -196,20 +201,22 @@ cudaError_t launch_global(const void* qkv, const void* r, void* out, int b,
   const dim3 grid((n + kQTile - 1) / kQTile, heads, b);
   relpos_global_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(r),
-      static_cast<float*>(out), n, heads, kh, kw, qscale);
+      static_cast<float*>(out), lse, n, heads, kh, kw, qscale);
   return cudaGetLastError();
 }
 
+template <bool kRowChunk>
 __global__ void __launch_bounds__(tc::kThreads)
     relpos_global_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
                             const __nv_bfloat16* __restrict__ r,
-                            __nv_bfloat16* __restrict__ out, int n, int heads,
-                            int kh, int kw, float qscale) {
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int n, int heads, int kh,
+                            int kw, float qscale) {
   extern __shared__ float4 smem4[];
   const int rr = kh + kw;
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* v_s = k_s + tc::kChunk * tc::kLd;
-  __nv_bfloat16* q_s = v_s + tc::kChunk * tc::kLd;
+  __nv_bfloat16* v_s = k_s + tc::kTileElems;
+  __nv_bfloat16* q_s = v_s + tc::kTileElems;
   float* r_s = reinterpret_cast<float*>(q_s + tc::kWarps * tc::kRows * tc::kLd);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -227,33 +234,40 @@ __global__ void __launch_bounds__(tc::kThreads)
              (long long)heads * rr, row0, n, rr, r_w, lane);
   for (int k0 = 0; k0 < n; k0 += tc::kChunk) {
     __syncthreads();  // previous tile fully consumed
-    tc::copy_rows(base + c, row_stride, k0, tc::kChunk, n, k_s, tid,
-                  tc::kThreads);
-    tc::copy_rows(base + 2 * c, row_stride, k0, tc::kChunk, n, v_s, tid,
-                  tc::kThreads);
+    tc::copy_rows_async(base + c, row_stride, k0, tc::kChunk, n, k_s, tid,
+                        tc::kThreads);
+    tc::copy_rows_async(base + 2 * c, row_stride, k0, tc::kChunk, n, v_s, tid,
+                        tc::kThreads);
+    tc::cp_async_wait();
     __syncthreads();
-    tc::chunk(st, k_s, v_s, r_w, rr + 1, k0, n, kh, kw, qscale, lane);
+    tc::chunk<kRowChunk>(st, k_s, v_s, r_w, rr + 1, k0, n, kh, kw, qscale,
+                         lane);
   }
-  tc::end_rows(st, out + (long long)b * n * c + h * kDh, c, row0, n, lane);
+  tc::end_rows(st, out + (long long)b * n * c + h * kDh, c, row0, n, lane,
+               lse == nullptr ? nullptr
+                              : lse + ((long long)b * heads + h) * n);
 }
 
-cudaError_t launch_global_tc(const void* qkv, const void* r, void* out, int b,
-                             int n, int heads, int kh, int kw, float qscale,
-                             cudaStream_t stream) {
+cudaError_t launch_global_tc(const void* qkv, const void* r, void* out,
+                             float* lse, int b, int n, int heads, int kh,
+                             int kw, float qscale, cudaStream_t stream) {
   const size_t smem =
       (size_t)(2 * tc::kChunk + tc::kWarps * tc::kRows) * tc::kLd *
           sizeof(__nv_bfloat16) +
       (size_t)tc::kWarps * tc::kRows * (kh + kw + 1) * sizeof(float);
+  // a key grid whose rows are one chunk wide (64 x 64 at 1024 px) takes
+  // the variant that reads the bias without a division
+  auto kernel = kw == tc::kChunk ? relpos_global_tc_kernel<true>
+                                 : relpos_global_tc_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      relpos_global_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows = tc::kWarps * tc::kRows;
   const dim3 grid((n + rows - 1) / rows, heads, b);
-  relpos_global_tc_kernel<<<grid, tc::kThreads, smem, stream>>>(
+  kernel<<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv),
       static_cast<const __nv_bfloat16*>(r), static_cast<__nv_bfloat16*>(out),
-      n, heads, kh, kw, qscale);
+      lse, n, heads, kh, kw, qscale);
   return cudaGetLastError();
 }
 
@@ -262,17 +276,19 @@ cudaError_t launch_global_tc(const void* qkv, const void* r, void* out, int b,
 // qkv (b, n, 3 * heads * 64), r (b, n, heads * (kh + kw)) and out
 // (b, n, heads * 64), contiguous and 16-byte aligned, all of one dtype
 // (0 = fp32, 1 = bf16). scale is the plain score scale; log2(e) is folded
-// in here.
+// in here. lse is null, or (b, heads, n) fp32 that receives every row's
+// log-sum-exp in the log2 domain for the backward kernels.
 extern "C" int la_relpos_global(const void* qkv, const void* r, void* out,
-                                int b, int n, int heads, int kh, int kw,
-                                float scale, int is_bf16, void* stream) {
+                                float* lse, int b, int n, int heads, int kh,
+                                int kw, float scale, int is_bf16,
+                                void* stream) {
   const float qscale = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? relpos::launch_global_tc(qkv, r, out, b, n, heads, kh, kw,
-                                         qscale, s)
-              : relpos::launch_global(qkv, r, out, b, n, heads, kh, kw, qscale,
-                                      s);
+      is_bf16 ? relpos::launch_global_tc(qkv, r, out, lse, b, n, heads, kh,
+                                         kw, qscale, s)
+              : relpos::launch_global(qkv, r, out, lse, b, n, heads, kh, kw,
+                                      qscale, s);
   return (int)err;
 }
 

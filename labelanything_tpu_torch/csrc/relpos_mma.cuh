@@ -29,6 +29,7 @@ constexpr int kChunk = 64;       // keys per softmax step
 constexpr int kLd = kDh + 8;     // bf16 row stride of q / K / V tiles:
                                  // 144 B keeps fragment loads conflict-free
 constexpr int kSteps = kDh / 16; // k-steps of q . k^T
+constexpr int kTileElems = kChunk * kLd;  // one 64-row tile in shared memory
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -55,19 +56,56 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copies 16 rows of bf16 (64 wide, row stride `stride` elements, first
-// row `row0`, rows >= n zero) into a kLd-strided shared tile.
+// Asynchronous copies from device to shared memory (cp.async): a thread
+// starts all its copies before it waits, so a tile costs one trip to L2 and
+// not one per 16 bytes. With src_bytes = 0 the destination is zero-filled
+// and the source is not read.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(addr),
+               "l"(src), "r"(bytes));
+}
+
+// Waits for every copy this thread has started; a barrier (__syncthreads or
+// __syncwarp) then makes them visible to the other threads.
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Starts the copy of `rows` rows of bf16 (64 wide, row stride `stride`
+// elements, first row `row0`, rows >= n zero) into a kLd-strided shared
+// tile; cp_async_wait() completes it.
+__device__ __forceinline__ void copy_rows_async(const __nv_bfloat16* src,
+                                                long long stride, int row0,
+                                                int rows, int n,
+                                                __nv_bfloat16* dst, int tid,
+                                                int nthreads) {
+  for (int i = tid; i < rows * (kDh / 8); i += nthreads) {
+    const int row = i >> 3, c8 = i & 7, gi = row0 + row;
+    const bool valid = gi < n;
+    cp_async_16(dst + row * kLd + c8 * 8,
+                valid ? src + gi * stride + c8 * 8 : src, valid);
+  }
+}
+
 __device__ __forceinline__ void copy_rows(const __nv_bfloat16* src,
                                           long long stride, int row0,
                                           int rows, int n,
                                           __nv_bfloat16* dst, int tid,
                                           int nthreads) {
-  for (int i = tid; i < rows * (kDh / 8); i += nthreads) {
-    const int row = i >> 3, c8 = i & 7, gi = row0 + row;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (gi < n) v = *reinterpret_cast<const uint4*>(src + gi * stride + c8 * 8);
-    *reinterpret_cast<uint4*>(dst + row * kLd + c8 * 8) = v;
-  }
+  copy_rows_async(src, stride, row0, rows, n, dst, tid, nthreads);
+  cp_async_wait();
 }
 
 // Per-warp running state of 16 query rows.
@@ -106,6 +144,9 @@ __device__ __forceinline__ void begin_rows(Rows& st,
 // One chunk of 64 keys: k_s / v_s point at the chunk's first key row,
 // kbase is that key's index in the sequence, r_w the warp's 16 fp32 r
 // rows (row stride rs), r = [rel_h (kh) | rel_w (kw)] x log2(e).
+// kRowChunk: kw == kChunk, so the chunk is one row ky of the key grid and
+// key e of the chunk has kx = e: the bias needs no division.
+template <bool kRowChunk>
 __device__ __forceinline__ void chunk(Rows& st, const __nv_bfloat16* k_s,
                                       const __nv_bfloat16* v_s,
                                       const float* r_w, int rs, int kbase,
@@ -130,15 +171,22 @@ __device__ __forceinline__ void chunk(Rows& st, const __nv_bfloat16* k_s,
   const float* r0 = r_w + g * rs;
   const float* r1 = r_w + (g + 8) * rs;
   float mx0 = st.m[0], mx1 = st.m[1];
+  const float h0 = kRowChunk ? r0[kbase / kChunk] : 0.f;
+  const float h1 = kRowChunk ? r1[kbase / kChunk] : 0.f;
 #pragma unroll
   for (int nt = 0; nt < kChunk / 8; ++nt)
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
-      const int j = kbase + nt * 8 + 2 * t + b;
+      const int e = nt * 8 + 2 * t + b, j = kbase + e;
       if (j < n) {
-        const int ky = j / kw, kx = kh + j - ky * kw;
-        s[nt][b] = fmaf(s[nt][b], qscale, r0[ky] + r0[kx]);
-        s[nt][2 + b] = fmaf(s[nt][2 + b], qscale, r1[ky] + r1[kx]);
+        if constexpr (kRowChunk) {
+          s[nt][b] = fmaf(s[nt][b], qscale, h0 + r0[kh + e]);
+          s[nt][2 + b] = fmaf(s[nt][2 + b], qscale, h1 + r1[kh + e]);
+        } else {
+          const int ky = j / kw, kx = kh + j - ky * kw;
+          s[nt][b] = fmaf(s[nt][b], qscale, r0[ky] + r0[kx]);
+          s[nt][2 + b] = fmaf(s[nt][2 + b], qscale, r1[ky] + r1[kx]);
+        }
       } else {
         s[nt][b] = -INFINITY;
         s[nt][2 + b] = -INFINITY;
@@ -196,10 +244,12 @@ __device__ __forceinline__ void chunk(Rows& st, const __nv_bfloat16* k_s,
   }
 }
 
-// Normalizes and writes the warp's rows < n (bf16, row stride `stride`).
+// Normalizes and writes the warp's rows < n (bf16, row stride `stride`);
+// where lse is not null it also receives each row's log-sum-exp (log2
+// domain), which the backward kernels read.
 __device__ __forceinline__ void end_rows(Rows& st, __nv_bfloat16* dst,
                                          long long stride, int row0, int n,
-                                         int lane) {
+                                         int lane, float* lse) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -214,6 +264,7 @@ __device__ __forceinline__ void end_rows(Rows& st, __nv_bfloat16* dst,
       for (int dn = 0; dn < kDh / 8; ++dn)
         row[dn * 4 + t] = pack_bf16(st.o[dn][2 * i] * inv,
                                     st.o[dn][2 * i + 1] * inv);
+      if (lse != nullptr && t == 0) lse[qi] = st.m[i] + log2f(l);
     }
   }
 }

@@ -58,7 +58,8 @@ __host__ __device__ inline size_t window_smem_floats(int n, int rr) {
 __global__ void __launch_bounds__(kThreads)
     relpos_window_kernel(const float* __restrict__ qkv,
                          const float* __restrict__ r, float* __restrict__ out,
-                         int n, int heads, int kh, int kw, float qscale) {
+                         float* __restrict__ lse, int n, int heads, int kh,
+                         int kw, float qscale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int np = window_np(n);
@@ -157,10 +158,14 @@ __global__ void __launch_bounds__(kThreads)
         s[i][t] = exp2f(s[i][t] - mx);
         sum += s[i][t];
       }
-      const float inv = 1.f / warp_sum(sum);
+      sum = warp_sum(sum);
+      const float inv = 1.f / sum;
 #pragma unroll
       for (int t = 0; t < kWSlots; ++t)
         if (32 * t < np) p_w[i * np + lane + 32 * t] = s[i][t] * inv;
+      const int qi = q0 + warp * kWRows + i;
+      if (lse != nullptr && lane == 0 && qi < n)
+        lse[(g * heads + h) * n + qi] = mx + log2f(sum);
     }
     __syncwarp();
 
@@ -200,9 +205,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-cudaError_t launch_window(const void* qkv, const void* r, void* out, int g,
-                          int n, int heads, int kh, int kw, float qscale,
-                          cudaStream_t stream) {
+cudaError_t launch_window(const void* qkv, const void* r, void* out,
+                          float* lse, int g, int n, int heads, int kh, int kw,
+                          float qscale, cudaStream_t stream) {
   const size_t smem = window_smem_floats(n, kh + kw) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       relpos_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -211,7 +216,7 @@ cudaError_t launch_window(const void* qkv, const void* r, void* out, int g,
   const dim3 grid(heads, g);
   relpos_window_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(r),
-      static_cast<float*>(out), n, heads, kh, kw, qscale);
+      static_cast<float*>(out), lse, n, heads, kh, kw, qscale);
   return cudaGetLastError();
 }
 
@@ -222,8 +227,9 @@ __host__ __device__ inline int window_tc_np(int n) {
 __global__ void __launch_bounds__(tc::kThreads)
     relpos_window_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
                             const __nv_bfloat16* __restrict__ r,
-                            __nv_bfloat16* __restrict__ out, int n, int heads,
-                            int kh, int kw, float qscale) {
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int n, int heads, int kh,
+                            int kw, float qscale) {
   extern __shared__ float4 smem4[];
   const int rr = kh + kw;
   const int np = window_tc_np(n);
@@ -242,8 +248,10 @@ __global__ void __launch_bounds__(tc::kThreads)
   __nv_bfloat16* q_w = q_s + warp * tc::kRows * tc::kLd;
   float* r_w = r_s + warp * tc::kRows * (rr + 1);
 
-  tc::copy_rows(base + c, row_stride, 0, np, n, k_s, tid, tc::kThreads);
-  tc::copy_rows(base + 2 * c, row_stride, 0, np, n, v_s, tid, tc::kThreads);
+  tc::copy_rows_async(base + c, row_stride, 0, np, n, k_s, tid, tc::kThreads);
+  tc::copy_rows_async(base + 2 * c, row_stride, 0, np, n, v_s, tid,
+                      tc::kThreads);
+  tc::cp_async_wait();
   __syncthreads();
 
   for (int row0 = warp * tc::kRows; row0 < n;
@@ -252,16 +260,17 @@ __global__ void __launch_bounds__(tc::kThreads)
     tc::begin_rows(st, base, row_stride, row0, n, q_w, lane);
     tc::load_r(rbase, (long long)heads * rr, row0, n, rr, r_w, lane);
     for (int k0 = 0; k0 < n; k0 += tc::kChunk)
-      tc::chunk(st, k_s + k0 * tc::kLd, v_s + k0 * tc::kLd, r_w, rr + 1, k0,
-                n, kh, kw, qscale, lane);
-    tc::end_rows(st, out + g * n * c + h * kDh, c, row0, n, lane);
+      tc::chunk<false>(st, k_s + k0 * tc::kLd, v_s + k0 * tc::kLd, r_w,
+                       rr + 1, k0, n, kh, kw, qscale, lane);
+    tc::end_rows(st, out + g * n * c + h * kDh, c, row0, n, lane,
+                 lse == nullptr ? nullptr : lse + (g * heads + h) * n);
     __syncwarp();  // q_w and r_w are restaged for the next tile
   }
 }
 
-cudaError_t launch_window_tc(const void* qkv, const void* r, void* out, int g,
-                             int n, int heads, int kh, int kw, float qscale,
-                             cudaStream_t stream) {
+cudaError_t launch_window_tc(const void* qkv, const void* r, void* out,
+                             float* lse, int g, int n, int heads, int kh,
+                             int kw, float qscale, cudaStream_t stream) {
   const size_t smem =
       (size_t)(2 * window_tc_np(n) + tc::kWarps * tc::kRows) * tc::kLd *
           sizeof(__nv_bfloat16) +
@@ -274,7 +283,7 @@ cudaError_t launch_window_tc(const void* qkv, const void* r, void* out, int g,
   relpos_window_tc_kernel<<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv),
       static_cast<const __nv_bfloat16*>(r), static_cast<__nv_bfloat16*>(out),
-      n, heads, kh, kw, qscale);
+      lse, n, heads, kh, kw, qscale);
   return cudaGetLastError();
 }
 
@@ -282,17 +291,18 @@ cudaError_t launch_window_tc(const void* qkv, const void* r, void* out, int g,
 
 // qkv (g, n, 3 * heads * 64), r (g, n, heads * (kh + kw)) and out
 // (g, n, heads * 64), contiguous and 16-byte aligned, one dtype (0 = fp32,
-// 1 = bf16), n <= 256.
+// 1 = bf16), n <= 256. lse as for la_relpos_global, (g, heads, n).
 extern "C" int la_relpos_window(const void* qkv, const void* r, void* out,
-                                int g, int n, int heads, int kh, int kw,
-                                float scale, int is_bf16, void* stream) {
+                                float* lse, int g, int n, int heads, int kh,
+                                int kw, float scale, int is_bf16,
+                                void* stream) {
   if (n > relpos::kWMaxN) return (int)cudaErrorInvalidValue;
   const float qscale = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? relpos::launch_window_tc(qkv, r, out, g, n, heads, kh, kw,
-                                         qscale, s)
-              : relpos::launch_window(qkv, r, out, g, n, heads, kh, kw, qscale,
-                                      s);
+      is_bf16 ? relpos::launch_window_tc(qkv, r, out, lse, g, n, heads, kh,
+                                         kw, qscale, s)
+              : relpos::launch_window(qkv, r, out, lse, g, n, heads, kh, kw,
+                                      qscale, s);
   return (int)err;
 }

@@ -2,7 +2,8 @@
 reference: label_anything/data/utils.py random_batch).
 
 The same numpy draws in the same order as the JAX package's
-``random_batch``, so one seed gives the same episode in both packages.
+``random_batch`` and ``random_full_batch``, so one seed gives the same
+episode in both packages.
 """
 
 from __future__ import annotations
@@ -81,4 +82,26 @@ def random_batch(batch_size: int = 2, num_examples: int = 1,
     batch[BatchKeys.FLAG_GTS] = np.ones((b, c), dtype=bool)
     batch[BatchKeys.DIMS] = np.tile(np.asarray([s, int(s * 0.9)], np.int32),
                                     (b, m + 1, 1))
+    return batch
+
+
+def random_full_batch(**kw) -> Dict[str, np.ndarray]:
+    """The training loop's variant of :func:`random_batch`: prompt tensors
+    and ``ground_truths`` (B, M+1, G, G) carry the full image axis, the
+    query slot included, as the Substitutor consumes them."""
+    kw.setdefault("num_examples", 1)
+    m = kw["num_examples"]
+    kw["num_examples"] = m + 1
+    batch = random_batch(**kw)
+    b = batch[BatchKeys.DIMS].shape[0]
+    g = kw.get("gt_size") or kw.get("image_size", 480)
+    c = kw.get("num_classes", 2)
+    rng = np.random.default_rng(kw.get("seed", 0) + 1)
+    gt = rng.integers(0, c, (b, m + 1, g, g)).astype(np.int32)
+    gt[:, :, :, int(g * 0.9):] = IGNORE_INDEX
+    batch[BatchKeys.GROUND_TRUTHS] = gt
+    # random_batch made M + 2 images; the episode has M + 1
+    for key in (BatchKeys.EMBEDDINGS, BatchKeys.IMAGES, BatchKeys.DIMS):
+        if key in batch:
+            batch[key] = batch[key][:, :m + 1]
     return batch

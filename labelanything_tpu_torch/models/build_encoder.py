@@ -6,6 +6,8 @@ kernel, which is still to be ported."""
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 from .image_encoder import ImageEncoderViT
@@ -26,7 +28,8 @@ PROMPT_EMBED_DIM = 256
 
 def build_vit_b(project_last_hidden: bool = True,
                 image_size: int = SAM_IMAGE_SIZE,
-                dtype: torch.dtype = torch.float32) -> ImageEncoderViT:
+                dtype: torch.dtype = torch.float32,
+                remat: Union[bool, str, None] = False) -> ImageEncoderViT:
     cfg = vit_configs["vit_b"]
     return ImageEncoderViT(
         img_size=image_size, patch_size=SAM_PATCH_SIZE,
@@ -34,4 +37,4 @@ def build_vit_b(project_last_hidden: bool = True,
         num_heads=cfg["num_heads"], mlp_ratio=4, out_chans=PROMPT_EMBED_DIM,
         qkv_bias=True, window_size=14,
         global_attn_indexes=cfg["global_attn_indexes"],
-        project_last_hidden=project_last_hidden, dtype=dtype)
+        project_last_hidden=project_last_hidden, dtype=dtype, remat=remat)

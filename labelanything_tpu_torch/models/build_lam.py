@@ -50,8 +50,10 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
                fusion_transformer: str = "TwoWayTransformer",
                class_encoder: Optional[dict] = None,
                custom_preprocess: bool = True,
-               dtype: Union[str, torch.dtype] = torch.float32) -> Lam:
-    """Architecture factory (reference: build_lam.py:96-235)."""
+               dtype: Union[str, torch.dtype] = torch.float32,
+               remat_encoder: Union[bool, str, None] = False) -> Lam:
+    """Architecture factory (reference: build_lam.py:96-235).
+    ``remat_encoder`` is the image encoder's ``remat``."""
     if fusion_transformer != "TwoWayTransformer":
         raise NotImplementedError(f"fusion transformer {fusion_transformer!r} "
                                   f"is not ported")
@@ -60,8 +62,10 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
 
     vit = None
     if use_vit and build_vit is not None:
+        # passed on only when set: a custom encoder factory need not know it
+        remat = {"remat": remat_encoder} if remat_encoder else {}
         vit = build_vit(project_last_hidden=use_vit_sam_neck,
-                        image_size=image_size, dtype=dtype)
+                        image_size=image_size, dtype=dtype, **remat)
 
     if class_encoder is not None:
         if class_encoder["name"] != "RandomMatrixEncoder":

@@ -12,11 +12,12 @@ reference.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention as fa
 from .common import Conv2d, LayerNorm, LayerNorm2d, Linear, MLPBlock, gelu
@@ -157,7 +158,13 @@ class ImageEncoderViT(nn.Module):
     """SAM image encoder (reference: image_encoder.py:19-131): (B, H, W, 3)
     -> (B, H/16, W/16, out_chans), or the pre-neck ``embed_dim`` state when
     ``project_last_hidden`` is False (no neck parameters then, as in the
-    JAX parameter tree)."""
+    JAX parameter tree).
+
+    ``remat``: False keeps every block's activations for the backward;
+    True or "full" reruns each block's forward in the backward
+    (``torch.utils.checkpoint``), which trades one extra forward for the
+    activation memory. The JAX package's partial policies "attn" and "dots"
+    are not ported."""
 
     def __init__(self, img_size: int = 1024, patch_size: int = 16,
                  in_chans: int = 3, embed_dim: int = 768, depth: int = 12,
@@ -166,8 +173,15 @@ class ImageEncoderViT(nn.Module):
                  window_size: int = 0,
                  global_attn_indexes: Sequence[int] = (),
                  project_last_hidden: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 remat: Union[bool, str, None] = False):
         super().__init__()
+        if remat in ("attn", "dots"):
+            raise NotImplementedError(
+                f"remat policy {remat!r} is not ported; use False or 'full'")
+        if remat not in (False, None, True, "full"):
+            raise ValueError(f"unknown remat policy: {remat!r}")
+        self.remat = bool(remat)
         grid = img_size // patch_size
         self.patch_embed = PatchEmbed(embed_dim, patch_size, in_chans,
                                       dtype=dtype)
@@ -190,5 +204,8 @@ class ImageEncoderViT(nn.Module):
         x = self.patch_embed(x)
         x = x + self.pos_embed.to(x.dtype)
         for block in self.blocks:
-            x = block(x)
+            if self.remat and torch.is_grad_enabled() and x.requires_grad:
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         return x if self.neck is None else self.neck(x)

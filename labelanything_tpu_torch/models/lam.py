@@ -92,11 +92,11 @@ class Lam(nn.Module):
                 pair(BatchKeys.PROMPT_MASKS, BatchKeys.FLAG_MASKS),
                 batch[BatchKeys.FLAG_EXAMPLES])
 
-    def _encode_prompts(self, support_embeddings: torch.Tensor,
-                        batch: Batch) -> dict:
+    def _encode_prompts(self, support_embeddings: torch.Tensor, batch: Batch,
+                        generator: Optional[torch.Generator] = None) -> dict:
         points, boxes, masks, flag_examples = self.prepare_prompts(batch)
         return self.prompt_encoder(support_embeddings, points, boxes, masks,
-                                   flag_examples)
+                                   flag_examples, generator)
 
     def _decode(self, query_embeddings: torch.Tensor, pe_result: dict,
                 dims: torch.Tensor) -> torch.Tensor:
@@ -104,9 +104,13 @@ class Lam(nn.Module):
                                 self.prompt_encoder.get_dense_pe(), pe_result)
         return self.postprocess_masks_fixed(seg, dims)
 
-    def forward(self, batch: Batch) -> dict:
+    def forward(self, batch: Batch,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """``generator`` (training): the CPU ``torch.Generator`` from which
+        a ``RandomMatrixEncoder`` draws the classes' bank rows; without it
+        class c takes row c."""
         embeddings = self.prepare_embeddings(batch)
-        pe_result = self._encode_prompts(embeddings[:, 1:], batch)
+        pe_result = self._encode_prompts(embeddings[:, 1:], batch, generator)
         seg = self._decode(embeddings[:, 0], pe_result, batch[BatchKeys.DIMS])
         if BatchKeys.FLAG_GTS in batch:
             seg = torch.where(batch[BatchKeys.FLAG_GTS][:, :, None, None], seg,

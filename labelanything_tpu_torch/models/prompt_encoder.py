@@ -14,7 +14,7 @@ same math and are not ported yet.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -63,19 +63,44 @@ class PositionEmbeddingRandom(nn.Module):
 
 class RandomMatrixEncoder(nn.Module):
     """Class-identity encoder (reference: prompt_encoder.py:233-277): adds
-    bank row c to every sparse and dense embedding of class c. Rows are
-    0..C-1, the evaluation-time choice; training's random row draw is not
-    ported yet. The bank starts at zero (see PositionEmbeddingRandom)."""
+    one bank row to every sparse and dense embedding of each class, which
+    makes class identity permutation-symmetric. Class c takes row c, unless
+    the call is handed a ``generator`` (a CPU ``torch.Generator``; the
+    train step hands its own on, as the JAX module draws only when given
+    its ``class_rows`` random stream): then the background takes row 0 and
+    the other classes distinct random rows of 1..bank_size-1, drawn anew on
+    every call. :attr:`rows`, when set, pins the rows instead (the tests
+    compare against a draw made elsewhere). The bank starts at zero (see
+    PositionEmbeddingRandom)."""
 
     def __init__(self, bank_size: int, embed_dim: int):
         super().__init__()
+        self.bank_size = bank_size
         self.pos_embedding = nn.Parameter(
             torch.zeros(1, 1, bank_size, embed_dim))
+        self.rows: Optional[Sequence[int]] = None
 
-    def forward(self, dense: torch.Tensor, sparse: torch.Tensor):
+    def class_rows(self, num_classes: int,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+        """Bank row of each of ``num_classes`` classes (CPU, int64)."""
+        if self.rows is not None:
+            rows = torch.as_tensor(self.rows, dtype=torch.long)
+            if rows.shape != (num_classes,):
+                raise ValueError(f"{num_classes} classes but rows "
+                                 f"{tuple(rows.tolist())}")
+            return rows
+        if generator is None:
+            return torch.arange(num_classes)
+        fg = torch.randperm(self.bank_size - 1, generator=generator)
+        return torch.cat([torch.zeros(1, dtype=torch.long),
+                          fg[:num_classes - 1] + 1])
+
+    def forward(self, dense: torch.Tensor, sparse: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         """dense (B, M, C, H, W, D), sparse (B, M, C, N, D)."""
-        c = sparse.shape[2]
-        enc = self.pos_embedding[0, 0, :c].to(dense.dtype)   # (C, D)
+        rows = self.class_rows(sparse.shape[2], generator).to(dense.device)
+        enc = self.pos_embedding[0, 0, rows].to(dense.dtype)   # (C, D)
         return (dense + enc[None, None, :, None, None, :],
                 sparse + enc[None, None, :, None, :].to(sparse.dtype))
 
@@ -83,7 +108,8 @@ class RandomMatrixEncoder(nn.Module):
 class IdentityClassEncoder(nn.Module):
     """No class encoding (the reference's default)."""
 
-    def forward(self, dense: torch.Tensor, sparse: torch.Tensor):
+    def forward(self, dense: torch.Tensor, sparse: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         return dense, sparse
 
 
@@ -237,7 +263,10 @@ class PromptImageEncoder(nn.Module):
         return embeddings
 
     def forward(self, image_embeddings: torch.Tensor, points: Pair, boxes: Pair,
-                masks: Pair, flag_examples: torch.Tensor) -> dict:
+                masks: Pair, flag_examples: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """``generator``: the class encoder's row draw (training); None
+        gives every class its own row."""
         sparse, dense = self.embed_points_masks(points, boxes, masks)
         b, m, c = dense.shape[:3]
         h, w = image_embeddings.shape[2:4]
@@ -246,7 +275,7 @@ class PromptImageEncoder(nn.Module):
                                     (h, w), spatial_axes=(1, 2)
                                     ).reshape((b, m, c, h, w, -1))
         src = image_embeddings[:, :, None] + dense
-        dense_enc, sparse_enc = self.class_encoder(src, sparse)
+        dense_enc, sparse_enc = self.class_encoder(src, sparse, generator)
         d = self.embed_dim
         _, keys = self.transformer(dense_enc.reshape(b * m * c, h, w, d),
                                    self.get_dense_pe(),

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``labelanything_tpu_torch/csrc/`` are compiled by ``nvcc``
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
+for Hopper (``sm_90a``), one ``nvcc`` per source and all started together,
+and linked into one shared library with a plain C interface,
 ``build/kernels/relpos_<hash>.so`` at the repository root, where ``<hash>``
 covers the sources and the compiler flags. The library is built at first
 use, loaded with ``ctypes`` and cached for the process. Nothing here runs
@@ -23,10 +24,11 @@ from typing import Optional
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
-SOURCES = ("relpos_global.cu", "relpos_window.cu")
-HEADERS = ("relpos_common.cuh", "relpos_mma.cuh")
+SOURCES = ("relpos_global.cu", "relpos_window.cu", "relpos_global_bwd.cu",
+           "relpos_window_bwd.cu")
+HEADERS = ("relpos_common.cuh", "relpos_mma.cuh", "relpos_bwd.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -70,13 +72,33 @@ def _source_hash() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
+    dims = [i, i, i, i, i, ctypes.c_float, i, p]  # b n heads kh kw scale bf16 stream
     for name in ("la_relpos_global", "la_relpos_window"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p] + dims            # qkv r out lse
+        fn.restype = i
+    for name in ("la_relpos_global_bwd", "la_relpos_window_bwd"):
+        fn = getattr(lib, name)
+        # qkv r out dout lse delta dqkv dr
+        fn.argtypes = [p, p, p, p, p, p, p, p] + dims
         fn.restype = i
     lib.la_error_string.argtypes = [i]
     lib.la_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run_all(commands) -> str:
+    """Start every command at once, wait for all, return their output;
+    raises if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in commands]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(commands, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outputs)
 
 
 def load() -> ctypes.CDLL:
@@ -90,16 +112,19 @@ def load() -> ctypes.CDLL:
             nvcc = find_nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-                   *(str(CSRC_DIR / s) for s in SOURCES)]
+            objects = [tmp.with_suffix(f".{Path(s).stem}.o") for s in SOURCES]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            try:
+                build_log = _run_all(
+                    [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
+                      str(obj), str(CSRC_DIR / src)]
+                     for src, obj in zip(SOURCES, objects)])
+                build_log += _run_all(
+                    [[nvcc, "-shared", "-o", str(tmp), *map(str, objects)]])
+            finally:
+                for obj in objects:
+                    obj.unlink(missing_ok=True)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{build_log}")
             os.replace(tmp, target)
         _lib = _declare(ctypes.CDLL(str(target)))
         return _lib

@@ -52,5 +52,12 @@ class ResultDict(StrEnum):
     EXAMPLES_CLASS_SRC = "examples_class_src"
 
 
+class LossDict(StrEnum):
+    """Keys of the loss module's result."""
+
+    VALUE = "value"
+    COMPONENTS = "components"
+
+
 #: ground-truth padding (reference: data/utils.py collate_gts)
 IGNORE_INDEX = -100

@@ -85,3 +85,62 @@ def test_kernel_rejects_bad_input(cuda):
                                         r, 0.125, (8, 8), 2)
     with pytest.raises(TypeError):
         fa.flash_attention_relpos_lanes(qkv.half(), r.half(), 0.125, (8, 8), 2)
+
+
+@pytest.mark.parametrize("kind,b,grid_hw,heads", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_matches_plain(cuda, kind, b, grid_hw, heads, dtype):
+    """K3 / K4 against the plain backward on the same inputs, saved output
+    and cotangent: fp32 to rtol = atol = 1e-4 (sums in another order), bf16
+    by the 4 x rounding-floor rule, per output (dqkv and dr). The
+    cotangent is handed over strided."""
+    fn = (fa.flash_attention_relpos_lanes if kind == "global"
+          else fa.flash_attention_relpos_lanes_batched)
+    counter = ("relpos_global" if kind == "global" else "relpos_window") \
+        + "_bwd"
+    args = (64 ** -0.5, grid_hw, heads)
+    qkv, r = _inputs(b, grid_hw, heads, dtype, cuda, seed=1)
+    ct = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (b, qkv.shape[1], heads * 64), np.float32)).to(cuda, dtype)
+    qkv.requires_grad_()
+    r.requires_grad_()
+    out = fn(qkv, r, *args)
+    before = fa.LAUNCHES[counter]
+    strided = torch.stack([ct, ct], dim=-1)[..., 0]
+    grads = torch.autograd.grad(out, (qkv, r), strided)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[counter] == before + 1
+    with torch.no_grad():
+        plain = fa.relpos_attention_bwd_plain(qkv, r, out, ct, *args)
+        plain32 = fa.relpos_attention_bwd_plain(
+            qkv.float(), r.float(), out.float(), ct.float(), *args)
+    for got, ref, ref32 in zip(grads, plain, plain32):
+        assert got.dtype == dtype and got.shape == ref.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        else:
+            ok, diff, floor = _bf16_ok(got, ref, ref32)
+            assert ok, (diff, floor)
+
+
+def test_backward_kernel_is_deterministic(cuda):
+    """No atomics: two runs give bit-identical gradients."""
+    qkv, r = _inputs(2, (32, 32), 4, torch.bfloat16, cuda)
+    qkv.requires_grad_()
+    r.requires_grad_()
+    out = fa.flash_attention_relpos_lanes(qkv, r, 0.125, (32, 32), 4)
+    ct = torch.ones_like(out)
+    first = torch.autograd.grad(out, (qkv, r), ct, retain_graph=True)
+    second = torch.autograd.grad(out, (qkv, r), ct)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_no_lse_without_grad_and_plain_by_name(cuda):
+    qkv, r = _inputs(1, (8, 8), 2, torch.float32, cuda)
+    fa.reset_launches()
+    with fa.plain_attention():
+        plain = fa.flash_attention_relpos_lanes(qkv, r, 0.125, (8, 8), 2)
+    assert not any(fa.LAUNCHES.values())
+    out = fa.flash_attention_relpos_lanes(qkv, r, 0.125, (8, 8), 2)
+    assert fa.LAUNCHES["relpos_global"] == 1 and out.grad_fn is None
+    torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)

@@ -117,6 +117,21 @@ def test_lam_forward_matches_jax(models, prompts):
         np.asarray(ref[ResultDict.EXAMPLES_CLASS_EMBS]), **TOL)
 
 
+def test_export_state_dict_copy_matches_jax_package(models):
+    """The port keeps its own copy of the JAX package's
+    ``export_state_dict``; on the full toy ``lam_b`` tree the two give the
+    same keys and arrays."""
+    from labelanything_tpu.utils.torch_import import export_state_dict as ref
+    from labelanything_tpu_torch.utils.weights import export_state_dict
+
+    _, params, _ = models
+    ours, theirs = export_state_dict(params), ref(params)
+    assert sorted(ours) == sorted(theirs) and len(ours) > 100
+    for key, value in theirs.items():
+        assert ours[key].dtype == value.dtype, key
+        np.testing.assert_array_equal(ours[key], value, err_msg=key)
+
+
 def test_serving_split_matches_jax(models):
     jm, params, tm = models
     batch = _episode()
@@ -147,8 +162,8 @@ def test_label_anything_api(models, monkeypatch):
         ref = tm(_t(batch))[ResultDict.LOGITS].numpy()
     # the api builds ViT-B; the toy encoder's builder stands in for it
     monkeypatch.setattr(tbl, "build_vit_b", _port_vit)
-    la = LabelAnything.from_jax_params(config, params)
-    seeded = [LabelAnything(config, seed=7) for _ in range(2)]
+    la = LabelAnything.from_jax_params(config, params, "cpu")
+    seeded = [LabelAnything(config, "cpu", seed=7) for _ in range(2)]
     _assert_logits_close(la.predict(batch).numpy(), ref)
     embs = la.generate_class_embeddings(_support(batch))
     _assert_logits_close(la.predict(batch, embs).numpy(), ref)

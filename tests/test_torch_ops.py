@@ -14,14 +14,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from labelanything_tpu.data.synthetic import random_batch as j_random_batch
+from labelanything_tpu.data.synthetic import random_full_batch as j_full_batch
 from labelanything_tpu.ops import flash_attention as jfa
 from labelanything_tpu.ops.attention import dot_product_attention as j_attention
 from labelanything_tpu.ops.image_norm import normalize_images as j_normalize
 from labelanything_tpu.ops.resize import resize_bilinear as j_resize
-from labelanything_tpu_torch.data.synthetic import random_batch
+from labelanything_tpu_torch.data.synthetic import (random_batch,
+                                                    random_full_batch)
 from labelanything_tpu_torch.ops import _build
 from labelanything_tpu_torch.ops import flash_attention as tfa
 from labelanything_tpu_torch.ops.attention import dot_product_attention
@@ -46,7 +49,7 @@ def _pallas_interpret(fn, *args):
     old = jfa._INTERPRET, jfa._BLOCK_Q, jfa._BLOCK_K
     jfa._INTERPRET, jfa._BLOCK_Q, jfa._BLOCK_K = True, 256, 256
     try:
-        return np.asarray(fn(*args))
+        return jax.tree.map(np.asarray, fn(*args))
     finally:
         jfa._INTERPRET, jfa._BLOCK_Q, jfa._BLOCK_K = old
 
@@ -73,6 +76,102 @@ def test_relpos_plain_twin_matches_jax(kind, b, grid_hw, heads):
                                         scale, grid_hw, heads))
     np.testing.assert_allclose(ours, kernel, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(ours, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kind,b,grid_hw,heads", [
+    ("global", 2, (48, 16), 2),
+    ("global", 2, (16, 48), 2),
+    ("window", 4, (14, 14), 2),
+])
+def test_relpos_plain_backward_matches_jax(kind, b, grid_hw, heads):
+    """The plain backward twin (what the K3 / K4 kernels are held against
+    on the card) against the JAX fused Pallas backward in interpret mode
+    and against ``jax.vjp`` of ``_lanes_xla_ref``; rtol = atol = 2e-4, as
+    the JAX package's own tests of those kernels. The wrappers' autograd
+    on CPU tensors goes through the same twin."""
+    jfn, tfn = {
+        "global": (jfa.flash_attention_relpos_lanes,
+                   tfa.flash_attention_relpos_lanes),
+        "window": (jfa.flash_attention_relpos_lanes_batched,
+                   tfa.flash_attention_relpos_lanes_batched),
+    }[kind]
+    qkv, r = _relpos_inputs(b, grid_hw, heads, seed=11)
+    ct = np.random.default_rng(12).standard_normal(
+        (b, qkv.shape[1], heads * 64)).astype(np.float32)
+    scale = 64 ** -0.5
+
+    def j_vjp(fn):
+        def run(a, rr, g):
+            return jax.vjp(lambda x, y: fn(x, y, scale, grid_hw, heads),
+                           a, rr)[1](g)
+        return run
+
+    fused = _pallas_interpret(j_vjp(jfn), *map(jnp.asarray, (qkv, r, ct)))
+    ref = j_vjp(jfa._lanes_xla_ref)(*map(jnp.asarray, (qkv, r, ct)))
+
+    tq = torch.tensor(qkv, requires_grad=True)
+    tr = torch.tensor(r, requires_grad=True)
+    out = tfn(tq, tr, scale, grid_hw, heads)
+    ours = torch.autograd.grad(out, (tq, tr), torch.from_numpy(ct))
+    plain = tfa.relpos_attention_bwd_plain(
+        tq.detach(), tr.detach(), out.detach(), torch.from_numpy(ct), scale,
+        grid_hw, heads)
+    for mine, twin, f, x in zip(ours, plain, fused, ref):
+        assert torch.equal(mine, twin)
+        assert np.abs(np.asarray(x)).max() > 1e-2    # r and its gradient count
+        np.testing.assert_allclose(mine.numpy(), np.asarray(f), rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(mine.numpy(), np.asarray(x), rtol=2e-4,
+                                   atol=2e-4)
+
+
+@pytest.mark.parametrize("kernel,grid_hw", [("relpos_global", (3, 4)),
+                                            ("relpos_window", (2, 3))])
+def test_relpos_autograd_function(kernel, grid_hw):
+    """``RelposAttention`` on the CPU route: ``gradcheck`` in fp64, and in
+    fp32 the same gradients as autograd of the plain forward (1e-5: one
+    takes the explicit formulas, the other PyTorch's)."""
+    kh, kw = grid_hw
+    heads, b = 2, 1
+    rng = np.random.default_rng(3)
+    qkv = rng.standard_normal((b, kh * kw, 3 * heads * 64))
+    r = rng.standard_normal((b, kh * kw, heads * (kh + kw)))
+    args = (0.125, grid_hw, heads)
+    q64 = torch.tensor(qkv, requires_grad=True)
+    r64 = torch.tensor(r, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda a, c: tfa.RelposAttention.apply(a, c, *args, kernel),
+        (q64, r64))
+
+    ct = torch.tensor(rng.standard_normal((b, kh * kw, heads * 64)),
+                      dtype=torch.float32)
+    grads = []
+    for fn in (lambda a, c: tfa.RelposAttention.apply(a, c, *args, kernel),
+               lambda a, c: tfa.relpos_attention_plain(a, c, *args)):
+        q32 = torch.tensor(qkv, dtype=torch.float32, requires_grad=True)
+        r32 = torch.tensor(r, dtype=torch.float32, requires_grad=True)
+        # a strided cotangent, as a projection's backward may hand over
+        out = fn(q32, r32)
+        wide = torch.stack([ct, ct], dim=-1)[..., 0]
+        assert not wide.is_contiguous()
+        grads.append(torch.autograd.grad(out, (q32, r32), wide))
+    for mine, auto in zip(*grads):
+        torch.testing.assert_close(mine, auto, rtol=1e-5, atol=1e-5)
+
+
+def test_relpos_cuda_route_never_falls_back():
+    """Off the CPU the wrappers launch their kernels or raise: a tensor on
+    another device type is refused, not sent to the plain twin."""
+    qkv, r = _relpos_inputs(1, (4, 4), 2, seed=0)
+    qkv, r = torch.from_numpy(qkv).to("meta"), torch.from_numpy(r).to("meta")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tfa.flash_attention_relpos_lanes(qkv, r, 0.125, (4, 4), 2)
+    assert not tfa._plain_requested
+    with tfa.plain_attention():
+        assert tfa._plain_requested
+    assert not tfa._plain_requested
+    assert sorted(tfa.LAUNCHES) == ["relpos_global", "relpos_global_bwd",
+                                    "relpos_window", "relpos_window_bwd"]
 
 
 @pytest.mark.parametrize("fn", [tfa.flash_attention_relpos_lanes,
@@ -105,17 +204,40 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.models.registry",
                "labelanything_tpu_torch.ops.flash_attention",
                "labelanything_tpu_torch.ops._build",
-               "labelanything_tpu_torch.utils.weights"]
+               "labelanything_tpu_torch.ops.time_kernels",
+               "labelanything_tpu_torch.utils.weights",
+               "labelanything_tpu_torch.train.losses",
+               "labelanything_tpu_torch.train.optim",
+               "labelanything_tpu_torch.train.metrics",
+               "labelanything_tpu_torch.train.substitutor",
+               "labelanything_tpu_torch.parallel.train_step"]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)
+            + "import numpy as np\n"
+            + "from labelanything_tpu_torch.utils.weights import "
+            + "state_dict_from_jax\n"
+            + "sd = state_dict_from_jax({'params': {'neck': {'conv1': "
+            + "{'kernel': np.zeros((1, 1, 2, 3), np.float32)}}}})\n"
+            + "assert tuple(sd['neck.0.weight'].shape) == (3, 2, 1, 1), sd\n"
             + "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            + "       ('jax', 'flax', 'PIL', 'labelanything_tpu')]\n"
+            + "       ('jax', 'flax', 'optax', 'PIL', 'labelanything_tpu')]\n"
             + "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    for root, _, files in os.walk(os.path.join(REPO, "labelanything_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as fh:
+                    text = fh.read()
+                for line in text.splitlines():
+                    words = line.split()
+                    if words[:1] in (["import"], ["from"]):
+                        assert words[1].split(".")[0] not in (
+                            "jax", "flax", "optax", "labelanything_tpu"), (
+                                name, line)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -129,6 +251,11 @@ def test_random_batch_matches_jax_package(kwargs):
     """The port's episode generator gives the JAX package's episode."""
     ours = random_batch(**kwargs)
     ref = j_random_batch(**kwargs)
+    assert sorted(ours) == sorted(ref)
+    for key, value in ref.items():
+        assert ours[key].dtype == value.dtype, key
+        np.testing.assert_array_equal(ours[key], value, err_msg=key)
+    ours, ref = random_full_batch(**kwargs), j_full_batch(**kwargs)
     assert sorted(ours) == sorted(ref)
     for key, value in ref.items():
         assert ours[key].dtype == value.dtype, key
