@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's LAM ViT-B paths once on one NVIDIA GPU: serving,
-then a fine-tune training step.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: ViT-B serving and a
+fine-tune training step, then the ViT-H and ViT-L encoders (serving and
+embedding).
 
 Run from the repository root, with no arguments:
 
@@ -21,7 +22,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    backward for a backward kernel) are timed, and the least time the card
    could take is reckoned from the shapes. The global kernels take a
    shorter bias path when a row of the key grid is 64 wide, as at 1024 px;
-   their general path is held against the twins on a 48 x 48 grid;
+   their general path is held against the twins on a 48 x 48 grid. The
+   packed kernels (head width 80, ViT-H's) are held the same way on the
+   token-major view the encoder hands them: global (1 image, 16 heads) and
+   windowed (25 windows), the strided view against the contiguous tensor
+   bit for bit, the general bias path on 48 x 48, and a gradient through
+   the autograd function (kernel forward, plain backward) against autograd
+   through the plain twin. The score-dtype microbench runs once at batch 1:
+   its variants of the packed global kernel against the twin, timed;
 3. slice parity: a 1-way 1-shot episode at 1024 px through the full fp32
    slice on the GPU (kernels) and on the CPU (plain twins), logits within
    rtol 1e-3 / atol 5e-4 and argmax agreement > 0.999;
@@ -48,12 +56,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    noise with these weights, so these losses cannot show the fall); a
    profiler pass over two more steps (kernel time by name, the device's
    busy share); then one step with the backbone frozen: no
-   backward kernel, encoder unchanged.
+   backward kernel, encoder unchanged;
+7. ViT-H parity (fp32): ``build_vit_h`` at full width and depth on one
+   1024-px image through the packed kernels against the same call inside
+   ``plain_attention()`` (rtol 1e-3 / atol 5e-4); then the ``lam_h`` slice
+   with the encoder cut to 8 blocks (global at 1, 3, 5, 7; full width) on
+   the card against the CPU, as phase 3;
+8. ViT-H and ViT-L serving (bf16): ``lam_h`` (1-way 5-shot support set, 3
+   requests) and ``lam_l`` (1-shot, 1 request) through ``LabelAnything``
+   with phase 4's checks; ``lam_h`` launches 4 packed global + 28 packed
+   windowed kernels an encoder call and no lanes kernel, ``lam_l`` 4 global
+   + 20 windowed lanes kernels; a profiler pass over one ``lam_h`` request;
+9. embedding: ``build_vit_h`` and ``build_vit_l`` in bf16 with the SAM neck
+   on a batch of 8 images at 1024 px: 1 warm-up and 3 timed calls, images
+   per second, peak memory, output (8, 64, 64, 256) finite.
 
 The last two lines are a JSON summary of the kernels and
-``{"ok": true, "device": {...}}``. The model is the repo's ViT-B LAM
-configuration (parameters/trainval/other/COCO_vit.yaml) at full width and
-depth, with random weights from a seed (``utils.weights.init_weights``).
+``{"ok": true, "device": {...}}``. The models are the repo's LAM
+configuration (parameters/trainval/other/COCO_vit.yaml) with the SAM ViT-B,
+ViT-L and ViT-H encoders at full width and depth, with random weights from
+a seed (``utils.weights.init_weights``).
 """
 
 from __future__ import annotations
@@ -70,13 +92,19 @@ import torch.nn.functional as F
 from labelanything_tpu_torch.api import LabelAnything
 from labelanything_tpu_torch.data.synthetic import (random_batch,
                                                     random_full_batch)
+from labelanything_tpu_torch.models.build_encoder import (build_vit_h,
+                                                          build_vit_l)
+from labelanything_tpu_torch.models.build_lam import build_lam
+from labelanything_tpu_torch.models.image_encoder import ImageEncoderViT
 from labelanything_tpu_torch.ops import _build
 from labelanything_tpu_torch.ops import flash_attention as fa
+from labelanything_tpu_torch.ops import microbench_softmax_dtype as microbench
 from labelanything_tpu_torch.parallel.train_step import (init_train_state,
                                                          make_train_step)
 from labelanything_tpu_torch.train.losses import LabelAnythingLoss
 from labelanything_tpu_torch.train.substitutor import Substitutor
 from labelanything_tpu_torch.typing import BatchKeys, ResultDict
+from labelanything_tpu_torch.utils.weights import init_weights
 
 # the model block of parameters/trainval/other/COCO_vit.yaml
 CONFIG = dict(name="lam_b", spatial_convs=3, class_attention=False,
@@ -85,11 +113,20 @@ CONFIG = dict(name="lam_b", spatial_convs=3, class_attention=False,
               embed_dim=512, image_size=1024, use_vit_sam_neck=False,
               class_encoder={"name": "RandomMatrixEncoder", "bank_size": 100,
                              "embed_dim": 512})
+# the same block with the SAM ViT-H and ViT-L encoders
+CONFIG_H = dict(CONFIG, name="lam_h", image_embed_dim=1280)
+CONFIG_L = dict(CONFIG, name="lam_l", image_embed_dim=1024)
 SEED = 0
 HEADS = 12
 SCALE = 64 ** -0.5
 # kernel launches of one encoder call: 4 global and 8 windowed blocks
 ENCODER_LAUNCHES = {"relpos_global": 4, "relpos_window": 8}
+# ViT-H: 4 global and 28 windowed blocks, heads 80 wide, the packed kernels;
+# ViT-L: 4 and 20 blocks, heads 64 wide, the lanes kernels
+ENCODER_LAUNCHES_H = {"relpos_packed_global": 4, "relpos_packed_window": 28}
+ENCODER_LAUNCHES_L = {"relpos_global": 4, "relpos_window": 20}
+HEADS_H, DH_H = 16, 80
+EMBED_BATCH = 8
 TRAIN_LAUNCHES = {"relpos_global": 4, "relpos_window": 8,
                   "relpos_global_bwd": 4, "relpos_window_bwd": 8}
 TRAIN_STEPS = 4
@@ -124,11 +161,27 @@ KERNELS = [
          b=150, grid=(14, 14), backward=True,
          source=_SRC + "relpos_window_bwd.cu", replaces=_JAX + "901"),
 ]
+# the packed kernels at ViT-H's serving shapes: one image, 25 windows
+PACKED_KERNELS = [
+    dict(name="relpos_packed_global", b=1, grid=(64, 64), heads=HEADS_H,
+         dh=DH_H, backward=False, source=_SRC + "relpos_packed.cu",
+         replaces=_JAX + "1371"),
+    dict(name="relpos_packed_window", b=25, grid=(14, 14), heads=HEADS_H,
+         dh=DH_H, backward=False, source=_SRC + "relpos_packed.cu",
+         replaces=_JAX + "1371"),
+]
+# the microbench's variants of the packed global kernel, at the same shape
+VARIANT_KERNELS = [
+    dict(PACKED_KERNELS[0], name=kernel,
+         source=_SRC + "relpos_packed_variants.cu",
+         replaces="scripts/microbench_softmax_dtype.py:113", variant=mode)
+    for mode, kernel in microbench.VARIANTS.items() if mode != "e"]
 # The global kernels' general bias path: a key grid whose rows are not 64
 # wide (a 768-px image) at the training step's batch. Held against the
 # plain twins, not timed; the main path at 1024 px does not take it.
 GENERAL_PATH = [dict(KERNELS[0], b=6, grid=(48, 48)),
                 dict(KERNELS[2], grid=(48, 48))]
+PACKED_GENERAL_PATH = dict(PACKED_KERNELS[0], b=2, grid=(48, 48))
 # parameters that the step's episodes give no gradient: negative points,
 # the no-mask / no-sparse stand-ins, and the prompt transformer's final
 # token-to-image attention, whose output (the queries) the encoder drops
@@ -195,14 +248,15 @@ def bound(k: dict) -> dict:
     scores), 10 N^2 dh; inputs qkv, r, out, dout and the forward's
     log-sum-exp (fp32); outputs dqkv, dr."""
     kh, kw = k["grid"]
-    b, n, c = k["b"], kh * kw, HEADS * 64
-    r_width = HEADS * (kh + kw)
+    heads, dh = k.get("heads", HEADS), k.get("dh", 64)
+    b, n, c = k["b"], kh * kw, heads * dh
+    r_width = heads * (kh + kw)
     if k["backward"]:
-        flops = 10 * b * HEADS * n * n * 64
+        flops = 10 * b * heads * n * n * dh
         nbytes = 2 * b * n * (2 * 3 * c + 2 * r_width + 2 * c) \
-            + 4 * b * HEADS * n
+            + 4 * b * heads * n
     else:
-        flops = 4 * b * HEADS * n * n * 64
+        flops = 4 * b * heads * n * n * dh
         nbytes = 2 * b * n * (3 * c + r_width + c)
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
@@ -224,7 +278,43 @@ def library_attention(qkv, r, grid_hw):
     return out.transpose(1, 2).reshape(b, n, c)
 
 
+def library_attention_packed(qkv, r, grid_hw):
+    """:func:`library_attention` on the packed layout."""
+    kh, kw = grid_hw
+    heads = r.shape[1]
+    rb = r / fa.LOG2E
+    bias = (rb[..., :kh, None] + rb[..., None, kh:]).reshape(
+        *r.shape[:3], kh * kw)
+    return F.scaled_dot_product_attention(
+        qkv[:, :heads], qkv[:, heads:2 * heads], qkv[:, 2 * heads:],
+        attn_mask=bias, scale=qkv.shape[-1] ** -0.5)
+
+
+def kernel_args(k: dict) -> tuple:
+    return (k.get("dh", 64) ** -0.5, k["grid"], k.get("heads", HEADS))
+
+
+def packed_inputs(k: dict):
+    """fp32 inputs of a packed kernel as the encoder hands them over: the
+    qkv projection (B, N, 3 C) viewed (B, 3 heads, N, dh) and r (B, N,
+    heads, kh + kw) viewed (B, heads, N, kh + kw), neither copied; and a
+    cotangent (B, heads, N, dh)."""
+    kh, kw = k["grid"]
+    b, n, heads, dh = k["b"], kh * kw, k["heads"], k["dh"]
+    rng = np.random.default_rng(1)
+    proj = torch.from_numpy(rng.standard_normal((b, n, 3 * heads * dh),
+                                                np.float32)).cuda()
+    r = torch.from_numpy((0.5 * rng.standard_normal(
+        (b, n, heads, kh + kw))).astype(np.float32)).cuda()
+    ct = torch.from_numpy(rng.standard_normal((b, heads, n, dh),
+                                              np.float32)).cuda()
+    return (proj.view(b, n, 3 * heads, dh).permute(0, 2, 1, 3),
+            r.permute(0, 2, 1, 3), ct)
+
+
 def kernel_inputs(k: dict):
+    if "dh" in k:
+        return packed_inputs(k)
     kh, kw = k["grid"]
     n, c = kh * kw, HEADS * 64
     rng = np.random.default_rng(1)
@@ -237,18 +327,30 @@ def kernel_inputs(k: dict):
     return qkv, r, ct
 
 
+def layout(k: dict) -> dict:
+    """Wrapper, plain twin and library call of a kernel's layout: packed
+    for the kernels that name a head width, else token-major."""
+    if "dh" in k:
+        return dict(fn=fa.flash_attention_relpos_packed,
+                    plain=fa.relpos_packed_plain,
+                    library=library_attention_packed)
+    return dict(fn=k["fn"], plain=fa.relpos_attention_plain,
+                library=library_attention)
+
+
 @torch.no_grad()
 def forward_error(k: dict, out, qkv, r) -> tuple:
     """Holds a forward kernel's ``out`` against the plain twin on the same
     inputs: (worst error, bf16 floor or None)."""
-    args = (SCALE, k["grid"], HEADS)
-    ref = fa.relpos_attention_plain(qkv, r, *args)
+    args = kernel_args(k)
+    plain = layout(k)["plain"]
+    ref = plain(qkv, r, *args)
     torch.cuda.synchronize()
     check(out.dtype == qkv.dtype, f"{k['name']}: output is {out.dtype}")
     if qkv.dtype == torch.float32:
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
         return (out - ref).abs().max().item(), None
-    ref32 = fa.relpos_attention_plain(qkv.float(), r.float(), *args)
+    ref32 = plain(qkv.float(), r.float(), *args)
     err = (out.float() - ref.float()).abs().max().item()
     floor = (ref.float() - ref32).abs().max().item()
     check(err <= 4 * floor + 1e-6,
@@ -259,26 +361,87 @@ def forward_error(k: dict, out, qkv, r) -> tuple:
 
 def check_forward(k: dict, timed: bool = True) -> dict:
     qkv, r, _ = kernel_inputs(k)
-    args = (SCALE, k["grid"], HEADS)
-    err32, _ = forward_error(k, k["fn"](qkv, r, *args), qkv, r)
+    args = kernel_args(k)
+    fn, plain, library = (layout(k)[x] for x in ("fn", "plain", "library"))
+    err32, _ = forward_error(k, fn(qkv, r, *args), qkv, r)
     qb, rb = qkv.bfloat16(), r.bfloat16()
-    err16, floor = forward_error(k, k["fn"](qb, rb, *args), qb, rb)
+    err16, floor = forward_error(k, fn(qb, rb, *args), qb, rb)
     stats = dict(max_abs_err=err32, max_abs_err_bf16=err16, bf16_floor=floor)
     if not timed:
         return stats
-    ref_b32 = fa.relpos_attention_plain(qb.float(), rb.float(), *args)
-    lib = library_attention(qb, rb, k["grid"])
+    ref_b32 = plain(qb.float(), rb.float(), *args)
+    lib = library(qb, rb, k["grid"])
     check((lib.float() - ref_b32).abs().max().item() <= 4 * floor + 1e-6,
           f"{k['name']}: the library call computes another function")
     del ref_b32, lib
     return dict(
         stats,
-        ms=median_ms(lambda: k["fn"](qb, rb, *args)),
-        plain_ms=median_ms(lambda: fa.relpos_attention_plain(qb, rb, *args)),
-        library_ms=median_ms(lambda: library_attention(qb, rb, k["grid"])),
-        ms_fp32=median_ms(lambda: k["fn"](qkv, r, *args)),
-        plain_ms_fp32=median_ms(
-            lambda: fa.relpos_attention_plain(qkv, r, *args)))
+        ms=median_ms(lambda: fn(qb, rb, *args)),
+        plain_ms=median_ms(lambda: plain(qb, rb, *args)),
+        library_ms=median_ms(lambda: library(qb, rb, k["grid"])),
+        ms_fp32=median_ms(lambda: fn(qkv, r, *args)),
+        plain_ms_fp32=median_ms(lambda: plain(qkv, r, *args)))
+
+
+def check_packed_layouts(k: dict) -> dict:
+    """A packed kernel beyond its forward check: the token-major view
+    against the contiguous slot-major tensor, bit for bit in both dtypes
+    (the output then lies as the input does), and a gradient through the
+    autograd function (kernel forward, plain backward) against autograd
+    through the plain twin (fp32, rtol = atol = 1e-4)."""
+    qkv, r, ct = kernel_inputs(k)
+    args = kernel_args(k)
+    for a, c in ((qkv, r), (qkv.bfloat16(), r.bfloat16())):
+        with torch.no_grad():
+            strided = fa.flash_attention_relpos_packed(a, c, *args)
+            dense = fa.flash_attention_relpos_packed(
+                a.contiguous(), c.contiguous(), *args)
+        check(not a.is_contiguous() and dense.is_contiguous()
+              and strided.permute(0, 2, 1, 3).is_contiguous(),
+              f"{k['name']}: unexpected layouts")
+        check(torch.equal(strided, dense),
+              f"{k['name']} {a.dtype}: the strided view and the contiguous "
+              f"tensor give other bits")
+    grads = []
+    for fn in (fa.flash_attention_relpos_packed, fa.relpos_packed_plain):
+        a, c = qkv.detach().requires_grad_(), r.detach().requires_grad_()
+        before = fa.LAUNCHES[k["name"]]
+        grads.append(torch.autograd.grad(fn(a, c, *args), (a, c), ct))
+        check(fa.LAUNCHES[k["name"]] - before
+              == int(fn is fa.flash_attention_relpos_packed),
+              f"{k['name']}: launches of the gradient check")
+    torch.cuda.synchronize()
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    return dict(grad_max_abs_err=max((g - x).abs().max().item()
+                                     for g, x in zip(*grads)))
+
+
+def check_variants() -> dict:
+    """The score-dtype microbench once at batch 1 (both of its shapes): it
+    holds each variant of the packed global kernel against the plain twin
+    and times it; the plain twin and the library call are timed here on
+    its ViT-H inputs. Returns the variants' records for the summary."""
+    fa.reset_launches()
+    records = microbench.run(batch=1, launches=50, repeats=3)
+    launches = dict(fa.LAUNCHES)
+    k = VARIANT_KERNELS[0]
+    qkv, r = microbench.inputs(1, k["heads"], k["dh"])
+    args = kernel_args(k)
+    with torch.no_grad():
+        plain_ms = median_ms(lambda: fa.relpos_packed_plain(qkv, r, *args))
+        library_ms = median_ms(
+            lambda: library_attention_packed(qkv, r, k["grid"]))
+    out = {}
+    for k in VARIANT_KERNELS:
+        rec = next(x for x in records
+                   if x["kernel"] == k["name"] and x["dh"] == k["dh"])
+        check(launches[k["name"]] > 0, f"{k['name']} was not launched")
+        out[k["name"]] = dict(
+            max_abs_err=rec["max_abs_err"], bf16_floor=rec["bf16_floor"],
+            ms=rec["ms_per_launch"], plain_ms=plain_ms,
+            library_ms=library_ms, launches=launches[k["name"]], **bound(k))
+    return out
 
 
 def check_backward(k: dict, timed: bool = True) -> dict:
@@ -358,8 +521,18 @@ def check_backward(k: dict, timed: bool = True) -> dict:
 
 def phase_kernels() -> dict:
     results = {}
-    for k in KERNELS:
+    for k in KERNELS + PACKED_KERNELS:
         stats = check_backward(k) if k["backward"] else check_forward(k)
+        extra = ""
+        if k["backward"]:
+            extra = (f"; its forward kernel at these shapes: fp32 err "
+                     f"{stats['fwd_max_abs_err']:.3g}, bf16 err "
+                     f"{stats['fwd_max_abs_err_bf16']:.3g}")
+        elif "dh" in k:
+            stats.update(check_packed_layouts(k))
+            extra = (f"; strided view == contiguous tensor; gradient (kernel "
+                     f"forward, plain backward) against autograd of the "
+                     f"plain twin: err {stats['grad_max_abs_err']:.3g}")
         results[k["name"]] = dict(stats, **bound(k))
         s = results[k["name"]]
         print(f"kernel {k['name']} b {k['b']} grid {k['grid']}: fp32 err "
@@ -368,15 +541,38 @@ def phase_kernels() -> dict:
               f"plain {s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} "
               f"ms, bound {s['bound_ms']:.4f} ms by {s['bound_by']}; fp32 "
               f"{s['ms_fp32']:.4f} ms vs plain {s['plain_ms_fp32']:.4f} ms"
-              + (f"; its forward kernel at these shapes: fp32 err "
-                 f"{s['fwd_max_abs_err']:.3g}, bf16 err "
-                 f"{s['fwd_max_abs_err_bf16']:.3g}" if k["backward"] else ""))
-    for k in GENERAL_PATH:
+              + extra)
+    for k in GENERAL_PATH + [PACKED_GENERAL_PATH]:
         s = (check_backward if k["backward"] else check_forward)(k, False)
+        if "dh" in k:
+            check_packed_layouts(k)
         print(f"kernel {k['name']}, general bias path, b {k['b']} grid "
               f"{k['grid']}: fp32 err {s['max_abs_err']:.3g}, bf16 err "
               f"{s['max_abs_err_bf16']:.3g} (floor {s['bf16_floor']:.3g})")
+    variants = check_variants()
+    for name, s in variants.items():
+        print(f"kernel {name} (microbench variant) b 1: bf16 err "
+              f"{s['max_abs_err']:.3g} (floor {s['bf16_floor']:.3g}); "
+              f"{s['ms']:.4f} ms a launch vs plain {s['plain_ms']:.4f} ms, "
+              f"library {s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} "
+              f"ms by {s['bound_by']}")
+    results.update(variants)
     return results
+
+
+def compare_logits(gpu: np.ndarray, cpu: np.ndarray, what: str) -> None:
+    """Card against CPU: the same finite mask, rtol 1e-3 / atol 5e-4 on
+    the finite logits, argmax agreement > 0.999."""
+    finite = np.isfinite(cpu)
+    check(np.array_equal(np.isfinite(gpu), finite), "finite masks differ")
+    check(finite.any(), "no finite logits")
+    err = np.abs(gpu[finite] - cpu[finite])
+    safe = lambda x: np.where(finite, x, -1e30)
+    agree = (safe(gpu).argmax(1) == safe(cpu).argmax(1)).mean()
+    print(f"{what}: max |gpu - cpu| {err.max():.3g} (logit scale "
+          f"{np.abs(cpu[finite]).max():.3g}), argmax agreement {agree:.6f}")
+    np.testing.assert_allclose(gpu[finite], cpu[finite], rtol=1e-3, atol=5e-4)
+    check(agree > 0.999, f"{what}: argmax agreement {agree}")
 
 
 def phase_parity() -> None:
@@ -393,22 +589,28 @@ def phase_parity() -> None:
         print(f"parity: fp32 forward on {device} "
               f"{time.perf_counter() - t0:.2f} s")
         del la
-    gpu, cpu = logits["cuda"], logits["cpu"]
-    finite = np.isfinite(cpu)
-    check(np.array_equal(np.isfinite(gpu), finite), "finite masks differ")
-    check(finite.any(), "no finite logits")
-    err = np.abs(gpu[finite] - cpu[finite])
-    safe = lambda x: np.where(finite, x, -1e30)
-    agree = (safe(gpu).argmax(1) == safe(cpu).argmax(1)).mean()
-    print(f"parity: max |gpu - cpu| {err.max():.3g} (logit scale "
-          f"{np.abs(cpu[finite]).max():.3g}), argmax agreement {agree:.6f}")
-    np.testing.assert_allclose(gpu[finite], cpu[finite], rtol=1e-3, atol=5e-4)
-    check(agree > 0.999, f"argmax agreement {agree}")
+    compare_logits(logits["cuda"], logits["cpu"], "parity")
 
 
-def phase_serve() -> dict:
-    la = LabelAnything(dict(CONFIG, dtype="bf16"), seed=SEED)   # on the card
-    episode = random_batch(batch_size=1, num_examples=5, num_classes=2,
+def nonzero(launches: dict) -> dict:
+    return {name: count for name, count in launches.items() if count}
+
+
+def expect_launches(launches: dict, expected: dict, what: str) -> None:
+    """Every counter holds what ``expected`` says, and 0 where it is silent."""
+    for name, count in launches.items():
+        check(count == expected.get(name, 0),
+              f"{what}: {name} launched {count} times, expected "
+              f"{expected.get(name, 0)}")
+
+
+def phase_serve(config: dict = CONFIG, per_call: dict = ENCODER_LAUNCHES,
+                shots: int = 5, requests: int = 3,
+                profile: bool = False) -> dict:
+    name = config["name"]
+    la = LabelAnything(dict(config, dtype="bf16"), seed=SEED)   # on the card
+    check(next(la.model.parameters()).is_cuda, f"{name} is not on the card")
+    episode = random_batch(batch_size=1, num_examples=shots, num_classes=2,
                            with_images=True, image_size=1024, seed=1)
     support = {k: v[:, 1:] if k in (BatchKeys.IMAGES, BatchKeys.DIMS) else v
                for k, v in episode.items()}
@@ -423,7 +625,7 @@ def phase_serve() -> dict:
     torch.cuda.synchronize()
     support_s = time.perf_counter() - t0
     latencies, outs = [], []
-    for _ in range(3):
+    for _ in range(requests):
         t0 = time.perf_counter()
         outs.append(la.predict(query, embs))
         torch.cuda.synchronize()
@@ -431,12 +633,10 @@ def phase_serve() -> dict:
     launches = dict(fa.LAUNCHES)
 
     calls = 1 + len(outs)   # encoder calls: the support set, each request
-    for name, per_call in ENCODER_LAUNCHES.items():
-        check(launches[name] == per_call * calls,
-              f"{name} launched {launches[name]} times, expected "
-              f"{per_call * calls}")
+    expect_launches(launches, {k: v * calls for k, v in per_call.items()},
+                    f"serve {name}")
     check(embs[ResultDict.CLASS_EMBS].shape == (1, 2, 512), "class embs shape")
-    s = CONFIG["image_size"]
+    s = config["image_size"]
     h, w = (int(x) for x in episode[BatchKeys.DIMS][0, 0])
     valid_w = int(np.floor(w * (s / max(h, w)) + 0.5))
     for out in outs:
@@ -449,10 +649,13 @@ def phase_serve() -> dict:
     check(all(torch.equal(outs[0], o) for o in outs[1:]),
           "repeated requests differ")
     peak = torch.cuda.max_memory_allocated()
-    print(f"serve: support set (5 images) {support_s * 1e3:.1f} ms; request "
+    print(f"serve {name}: support set ({shots} images) "
+          f"{support_s * 1e3:.1f} ms; request "
           f"latency median {statistics.median(latencies) * 1e3:.1f} ms "
           f"(all {[round(x * 1e3, 1) for x in latencies]}); peak memory "
-          f"{peak / 2**30:.2f} GiB; launches {launches}")
+          f"{peak / 2**30:.2f} GiB; launches {nonzero(launches)}")
+    if profile:
+        profile_steps(lambda: la.predict(query, embs), 2, unit="request")
     return launches
 
 
@@ -513,13 +716,11 @@ def phase_step_parity() -> None:
         runs[mode] = gradient_pass("float32", batch, gt, mode == "plain")
         launches = dict(fa.LAUNCHES)
         # 2 images in one encoder call, forward and backward
-        expected = TRAIN_LAUNCHES if mode == "kernels" else {}
-        for name, count in launches.items():
-            check(count == expected.get(name, 0),
-                  f"step parity ({mode}): {name} launched {count} times")
+        expect_launches(launches, TRAIN_LAUNCHES if mode == "kernels" else {},
+                        f"step parity ({mode})")
         print(f"step parity: fp32 pass through the {mode} "
               f"{time.perf_counter() - t0:.2f} s, loss {runs[mode][1]:.6f}, "
-              f"launches {launches}")
+              f"launches {nonzero(launches)}")
     (state, loss_k, grads_k), (_, loss_p, grads_p) = (runs.pop("kernels"),
                                                       runs.pop("plain"))
     check(np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
@@ -584,10 +785,10 @@ def phase_step_parity() -> None:
           f"the fp32 loss did not fall: {losses}")
 
 
-def profile_steps(run_step, steps: int = 2) -> None:
+def profile_steps(run_step, steps: int = 2, unit: str = "step") -> None:
     """Kernel time by name and the device's busy share over a few training
-    steps (``torch.profiler``; its own host cost stretches the window, so
-    the busy share is a lower bound)."""
+    steps or requests (``torch.profiler``; its own host cost stretches the
+    window, so the busy share is a lower bound)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -603,13 +804,17 @@ def profile_steps(run_step, steps: int = 2) -> None:
                # kernels, not the optimizer's annotation ranges
                and not e.key.startswith("Optimizer.")]
     busy_ms = sum(t for t, _, _ in kernels)
-    print(f"profile: {steps} steps, {wall_ms / steps:.1f} ms a step under the "
-          f"profiler, kernel time {busy_ms / steps:.1f} ms a step in "
+    print(f"profile: {steps} {unit}s, {wall_ms / steps:.1f} ms a {unit} under "
+          f"the profiler, kernel time {busy_ms / steps:.1f} ms a {unit} in "
           f"{sum(n for _, n, _ in kernels) // steps} kernels, device busy "
           f"{busy_ms / wall_ms:.3f} of the window")
     for t, n, key in sorted(kernels, reverse=True)[:12]:
-        print(f"profile:   {t / steps:8.3f} ms a step, {n // steps:5d} "
+        print(f"profile:   {t / steps:8.3f} ms a {unit}, {n // steps:5d} "
               f"launches  {key[:90]}")
+    for t, n, key in sorted(kernels, reverse=True):
+        if "relpos" in key:
+            print(f"profile:   {t / n:8.4f} ms a launch on the device  "
+                  f"{key[:90]}")
 
 
 def encoder_digest(model) -> float:
@@ -659,7 +864,7 @@ def phase_train() -> dict:
 
     check(all(np.isfinite(x) for x in losses), f"losses {losses}")
     for launches in per_step:
-        check(launches == TRAIN_LAUNCHES, f"launches of a step: {launches}")
+        expect_launches(launches, TRAIN_LAUNCHES, "a training step")
     check(state.step == 1 + TRAIN_STEPS, f"{state.step} updates")
     unchanged = []
     for name, p in model.named_parameters():
@@ -675,7 +880,8 @@ def phase_train() -> dict:
           f"{[round(x, 6) for x in losses]}; warm-up {times[0] * 1e3:.1f} ms, "
           f"steps {[round(x * 1e3, 1) for x in timed]} ms, median {ms:.1f} ms"
           f" = {images / ms * 1e3:.2f} images/s; peak memory "
-          f"{peak / 2**30:.2f} GiB; launches per step {per_step[-1]}; "
+          f"{peak / 2**30:.2f} GiB; launches per step "
+          f"{nonzero(per_step[-1])}; "
           f"{len(unchanged)} of {len(before)} parameters did not move")
     total = {name: sum(x[name] for x in per_step) for name in TRAIN_LAUNCHES}
     del before
@@ -700,13 +906,121 @@ def phase_train() -> dict:
     frozen_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(fa.LAUNCHES)
     check(np.isfinite(float(aux["loss"])), "frozen step: loss not finite")
-    check(launches == dict(ENCODER_LAUNCHES, relpos_global_bwd=0,
-                           relpos_window_bwd=0),
-          f"frozen step: launches {launches}")
+    expect_launches(launches, ENCODER_LAUNCHES, "frozen step")
     check(encoder_digest(model) == digest, "frozen step: the encoder moved")
     print(f"train, backbone frozen: loss {float(aux['loss']):.6f}, "
-          f"{frozen_ms:.1f} ms (first such step), launches {launches}")
+          f"{frozen_ms:.1f} ms (first such step), launches "
+          f"{nonzero(launches)}")
     return total
+
+
+def encoder_on_card(build, **kwargs) -> ImageEncoderViT:
+    """An encoder built straight on the card (no CPU copy first) with the
+    seeded weights, in ``eval()`` mode."""
+    with torch.device("meta"):
+        vit = build(**kwargs)
+    vit = vit.to_empty(device="cuda")
+    init_weights(vit, SEED)
+    return vit.eval()
+
+
+def cut_vit_h(project_last_hidden: bool, image_size: int,
+              dtype: torch.dtype) -> ImageEncoderViT:
+    """ViT-H at full width cut to 8 blocks, every second one global, so
+    the CPU side of the slice parity stays within a minute or two."""
+    return ImageEncoderViT(
+        img_size=image_size, patch_size=16, embed_dim=1280, depth=8,
+        num_heads=HEADS_H, mlp_ratio=4, out_chans=256, qkv_bias=True,
+        window_size=14, global_attn_indexes=(1, 3, 5, 7),
+        project_last_hidden=project_last_hidden, dtype=dtype)
+
+
+def phase_vit_h_parity() -> None:
+    vit = encoder_on_card(build_vit_h, project_last_hidden=False)   # fp32
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 1024, 1024, 3), np.float32)).cuda()
+    fa.reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out = vit(x)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        with fa.plain_attention():
+            ref = vit(x)
+        torch.cuda.synchronize()
+    expect_launches(launches, ENCODER_LAUNCHES_H, "ViT-H parity")
+    check(dict(fa.LAUNCHES) == launches,
+          "a kernel was launched inside plain_attention()")
+    check(tuple(out.shape) == (1, 64, 64, 1280)
+          and bool(torch.isfinite(out).all()), "ViT-H output")
+    print(f"ViT-H parity: fp32 encoder, 32 blocks, through the kernels "
+          f"{kernel_s:.2f} s (first call); max |kernels - plain| "
+          f"{(out - ref).abs().max().item():.3g} at scale "
+          f"{ref.abs().max().item():.3g}; launches {nonzero(launches)}")
+    torch.testing.assert_close(out, ref, rtol=1e-3, atol=5e-4)
+    del vit, out, ref
+    torch.cuda.empty_cache()
+
+    batch = random_batch(batch_size=1, num_examples=1, num_classes=2,
+                         with_images=True, image_size=1024, seed=0)
+    args = {k: v for k, v in CONFIG_H.items() if k != "name"}
+    logits = {}
+    for device in ("cuda", "cpu"):
+        with torch.device("meta"):
+            model = build_lam(build_vit=cut_vit_h, dtype="float32", **args)
+        model = model.to_empty(device=device).eval()
+        init_weights(model, SEED)
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = model({k: torch.as_tensor(v, device=device)
+                         for k, v in batch.items()})[ResultDict.LOGITS]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        logits[device] = out.float().cpu().numpy()
+        expect_launches(dict(fa.LAUNCHES),
+                        {"relpos_packed_global": 4, "relpos_packed_window": 4}
+                        if device == "cuda" else {}, f"lam_h parity, {device}")
+        print(f"lam_h parity: fp32 slice, encoder cut to 8 blocks, on "
+              f"{device} {time.perf_counter() - t0:.2f} s")
+        del model, out
+    compare_logits(logits["cuda"], logits["cpu"], "lam_h parity")
+    torch.cuda.empty_cache()
+
+
+def phase_embed(build, name: str, per_call: dict) -> dict:
+    """``bench_vit``'s set-up: the encoder in bf16 with the SAM neck on a
+    batch of standard-normal images, no gradient."""
+    vit = encoder_on_card(build, dtype=torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (EMBED_BATCH, 1024, 1024, 3), np.float32)).cuda().bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    times = []
+    with torch.no_grad():
+        for _ in range(1 + 3):
+            t0 = time.perf_counter()
+            out = vit(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = dict(fa.LAUNCHES)
+    expect_launches(launches, {k: v * len(times) for k, v in per_call.items()},
+                    f"embed {name}")
+    check(tuple(out.shape) == (EMBED_BATCH, 64, 64, 256)
+          and out.dtype == torch.bfloat16
+          and bool(torch.isfinite(out).all()), f"embed {name}: output")
+    ms = statistics.median(times[1:]) * 1e3
+    print(f"embed {name}: {EMBED_BATCH} images a call, bf16, warm-up "
+          f"{times[0] * 1e3:.1f} ms, calls "
+          f"{[round(t * 1e3, 1) for t in times[1:]]} ms, median {ms:.1f} ms = "
+          f"{EMBED_BATCH / ms * 1e3:.2f} images/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{nonzero(launches)}")
+    del vit, out
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -715,18 +1029,28 @@ def main() -> None:
     phase_build()
     kernel_stats = phase_kernels()
     phase_parity()
-    serve_launches = phase_serve()
+    # each main path is driven with the counters set to 0 just before it
+    # and read just after; a kernel's launches are summed over them
+    paths = [phase_serve()]
     phase_step_parity()
-    train_launches = phase_train()
+    paths.append(phase_train())
+    phase_vit_h_parity()
+    paths.append(phase_serve(CONFIG_H, ENCODER_LAUNCHES_H, profile=True))
+    paths.append(phase_serve(CONFIG_L, ENCODER_LAUNCHES_L, shots=1,
+                             requests=1))
+    paths.append(phase_embed(build_vit_h, "vit_h", ENCODER_LAUNCHES_H))
+    paths.append(phase_embed(build_vit_l, "vit_l", ENCODER_LAUNCHES_L))
     summary = []
-    for k in KERNELS:
-        # launches over both main paths: the serving requests (4 encoder
-        # calls) and the timed training steps
-        summary.append(dict(
-            name=k["name"], route="cuda", source=k["source"],
-            replaces=k["replaces"],
-            launches=serve_launches[k["name"]] + train_launches[k["name"]],
-            **kernel_stats[k["name"]]))
+    for k in KERNELS + PACKED_KERNELS + VARIANT_KERNELS:
+        stats = dict(kernel_stats[k["name"]])
+        # the variants' main path is the microbench, counted in phase 2
+        launches = stats.pop("launches", None)
+        if launches is None:
+            launches = sum(path.get(k["name"], 0) for path in paths)
+        check(launches > 0, f"{k['name']} was launched on no main path")
+        summary.append(dict(name=k["name"], route="cuda", source=k["source"],
+                            replaces=k["replaces"], launches=launches,
+                            **stats))
     print(card)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

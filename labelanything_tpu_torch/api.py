@@ -21,8 +21,9 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from .models.build_lam import build_lam, build_lam_vit_b
+from .models.build_lam import build_lam
 from .models.lam import Lam
+from .models.registry import model_registry
 from .typing import ResultDict
 from .utils.weights import init_weights, state_dict_from_jax
 
@@ -34,12 +35,17 @@ _NOT_BUILD_ARGS = ("model_type", "name", "checkpoint", "use_sam_checkpoint")
 
 
 def build_from_config(config: Dict[str, Any]) -> Lam:
-    """Build the model a config describes (``name`` "lam_b" or, like the
-    JAX ``LabelAnything``, the no-encoder ``build_lam``)."""
+    """Build the model a config describes: ``name`` picks an entry of the
+    registry ("lam_b", "lam_l", "lam_h", "lam_no_vit"); without one it is,
+    like the JAX ``LabelAnything``, the no-encoder ``build_lam``."""
     args = {k: v for k, v in config.items() if k not in _NOT_BUILD_ARGS}
-    if config.get("name") == "lam_b":
-        return build_lam_vit_b(**args)
-    return build_lam(**args)
+    name = config.get("name")
+    if name is None:
+        return build_lam(**args)
+    if name not in model_registry:
+        raise ValueError(f"unknown model {name!r}; ported: "
+                         f"{sorted(model_registry)}")
+    return model_registry[name](**args)
 
 
 def build_on_device(config: Dict[str, Any],

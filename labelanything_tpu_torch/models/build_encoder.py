@@ -1,8 +1,8 @@
 """SAM ViT encoder builders (counterpart of
 ``labelanything_tpu/models/build_encoder.py``; reference:
-label_anything/models/build_encoder.py). ViT-L and ViT-H are listed with
-their widths but not built yet: ViT-H's head width 80 needs the packed
-kernel, which is still to be ported."""
+label_anything/models/build_encoder.py): ViT-B, ViT-L and ViT-H at the
+published widths of ``facebookresearch/segment-anything``. ViT-H's heads
+are 80 wide and run the packed rel-pos attention kernels."""
 
 from __future__ import annotations
 
@@ -26,11 +26,11 @@ SAM_PATCH_SIZE = 16
 PROMPT_EMBED_DIM = 256
 
 
-def build_vit_b(project_last_hidden: bool = True,
-                image_size: int = SAM_IMAGE_SIZE,
-                dtype: torch.dtype = torch.float32,
-                remat: Union[bool, str, None] = False) -> ImageEncoderViT:
-    cfg = vit_configs["vit_b"]
+def _build_vit(config_name: str, project_last_hidden: bool = True,
+               image_size: int = SAM_IMAGE_SIZE,
+               dtype: torch.dtype = torch.float32,
+               remat: Union[bool, str, None] = False) -> ImageEncoderViT:
+    cfg = vit_configs[config_name]
     return ImageEncoderViT(
         img_size=image_size, patch_size=SAM_PATCH_SIZE,
         embed_dim=cfg["embed_dim"], depth=cfg["depth"],
@@ -38,3 +38,18 @@ def build_vit_b(project_last_hidden: bool = True,
         qkv_bias=True, window_size=14,
         global_attn_indexes=cfg["global_attn_indexes"],
         project_last_hidden=project_last_hidden, dtype=dtype, remat=remat)
+
+
+def build_vit_h(**kwargs) -> ImageEncoderViT:
+    return _build_vit("vit_h", **kwargs)
+
+
+def build_vit_l(**kwargs) -> ImageEncoderViT:
+    return _build_vit("vit_l", **kwargs)
+
+
+def build_vit_b(**kwargs) -> ImageEncoderViT:
+    return _build_vit("vit_b", **kwargs)
+
+
+ENCODERS = {"vit_h": build_vit_h, "vit_l": build_vit_l, "vit_b": build_vit_b}

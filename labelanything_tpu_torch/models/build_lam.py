@@ -3,7 +3,7 @@ reference: label_anything/models/build_lam.py:96-300).
 
 Builders return modules whose parameters are fp32 and whose compute dtype is
 ``dtype``; weights come from :mod:`..utils.weights` (a seeded init or JAX
-parameters). Ported: the SAM ViT-B encoder (or none) with the prototype
+parameters). Ported: a SAM ViT-B, ViT-L or ViT-H encoder (or none) with the prototype
 decoder and the two-way fusion transformer.
 """
 
@@ -13,7 +13,7 @@ from typing import Optional, Union
 
 import torch
 
-from .build_encoder import build_vit_b
+from .build_encoder import build_vit_b, build_vit_h, build_vit_l
 from .lam import Lam, Neck
 from .mask_decoder import MaskDecoderLam
 from .prompt_encoder import (IdentityClassEncoder, PromptImageEncoder,
@@ -102,6 +102,14 @@ build_lam = _build_lam
 
 def build_lam_vit_b(**kwargs) -> Lam:
     return _build_lam(build_vit_b, **kwargs)
+
+
+def build_lam_vit_l(**kwargs) -> Lam:
+    return _build_lam(build_vit_l, **kwargs)
+
+
+def build_lam_vit_h(**kwargs) -> Lam:
+    return _build_lam(build_vit_h, **kwargs)
 
 
 def build_lam_no_vit(**kwargs) -> Lam:

@@ -3,11 +3,13 @@
 label_anything/models/image_encoder.py).
 
 Channels-last throughout. The decomposed relative-position attention runs
-through the CUDA kernels of :mod:`..ops.flash_attention`: the global blocks
-through ``flash_attention_relpos_lanes``, the windowed blocks through
-``flash_attention_relpos_lanes_batched``. Windows are zero-padded before the
-qkv projection, so pad tokens carry qkv = bias and are attended, as in the
-reference.
+through the CUDA kernels of :mod:`..ops.flash_attention`. Heads 64 wide
+(ViT-B, ViT-L): the global blocks through ``flash_attention_relpos_lanes``,
+the windowed blocks through ``flash_attention_relpos_lanes_batched``. Any
+other head width (ViT-H: 80): both through ``flash_attention_relpos_packed``
+on a token-major view of the qkv projection. Windows are zero-padded before
+the qkv projection, so pad tokens carry qkv = bias and are attended, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -84,7 +86,8 @@ class PatchEmbed(nn.Module):
 
 class ViTAttention(nn.Module):
     """Multi-head attention with decomposed rel-pos (reference:
-    image_encoder.py:200-255). ``windowed`` selects the windowed kernel."""
+    image_encoder.py:200-255). ``windowed`` selects the windowed kernel of
+    the 64-wide heads; the packed function picks its own by token count."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
                  input_size: Tuple[int, int], windowed: bool,
@@ -110,17 +113,21 @@ class ViTAttention(nn.Module):
         q4 = qkv[..., :dim].reshape(b, h, w, heads, head_dim)
         rel_h = torch.einsum("byxnc,ykc->byxnk", q4, rh)
         rel_w = torch.einsum("byxnc,xkc->byxnk", q4, rw)
-        r = (torch.cat([rel_h, rel_w], dim=-1) * fa.LOG2E).reshape(
-            b, h * w, heads * (h + w))
-        if head_dim != fa.KERNEL_HEAD_DIM and qkv.device.type == "cpu":
-            # the kernels take dh = 64 (ViT-B/L); narrower test widths run
-            # the plain twin on the CPU, and on the card the wrapper raises
-            attend = fa.relpos_attention_plain
-        elif self.windowed:
-            attend = fa.flash_attention_relpos_lanes_batched
+        r = torch.cat([rel_h, rel_w], dim=-1) * fa.LOG2E
+        scale = head_dim ** -0.5
+        if head_dim == fa.KERNEL_HEAD_DIM:
+            attend = (fa.flash_attention_relpos_lanes_batched if self.windowed
+                      else fa.flash_attention_relpos_lanes)
+            out = attend(qkv, r.reshape(b, h * w, heads * (h + w)), scale,
+                         (h, w), heads)
         else:
-            attend = fa.flash_attention_relpos_lanes
-        out = attend(qkv, r, head_dim ** -0.5, (h, w), heads)
+            # the packed kernels take strides: they read the projection and
+            # r as they lie and write the output token-major, so the views
+            # below cost no copy on the card
+            out = fa.flash_attention_relpos_packed(
+                qkv.view(b, h * w, 3 * heads, head_dim).permute(0, 2, 1, 3),
+                r.reshape(b, h * w, heads, h + w).permute(0, 2, 1, 3), scale,
+                (h, w), heads).permute(0, 2, 1, 3)
         return self.proj(out.reshape(b, h, w, dim))
 
 

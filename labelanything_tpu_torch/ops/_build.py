@@ -25,8 +25,10 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 SOURCES = ("relpos_global.cu", "relpos_window.cu", "relpos_global_bwd.cu",
-           "relpos_window_bwd.cu")
-HEADERS = ("relpos_common.cuh", "relpos_mma.cuh", "relpos_bwd.cuh")
+           "relpos_window_bwd.cu", "relpos_packed.cu",
+           "relpos_packed_variants.cu")
+HEADERS = ("relpos_common.cuh", "relpos_mma.cuh", "relpos_bwd.cuh",
+           "relpos_packed.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
@@ -81,6 +83,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         # qkv r out dout lse delta dqkv dr
         fn.argtypes = [p, p, p, p, p, p, p, p] + dims
+        fn.restype = i
+    for name in ("la_relpos_packed_global", "la_relpos_packed_window",
+                 "la_relpos_packed_onehot", "la_relpos_packed_bf16exp"):
+        fn = getattr(lib, name)
+        # qkv r out; b n heads kh kw dh scale bf16 strides[9] stream
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, i,
+                       ctypes.POINTER(ctypes.c_longlong), p]
         fn.restype = i
     lib.la_error_string.argtypes = [i]
     lib.la_error_string.restype = ctypes.c_char_p

@@ -1,7 +1,8 @@
 """Decomposed relative-position attention for the SAM ViT encoder.
 
-Counterpart of ``labelanything_tpu/ops/flash_attention.py``. Four kernels
-written in CUDA C++ for Hopper replace the TPU's Pallas kernels:
+Counterpart of ``labelanything_tpu/ops/flash_attention.py``. Kernels written
+in CUDA C++ for Hopper replace the TPU's Pallas kernels. For heads 64 wide
+(ViT-B, ViT-L), on the token-major qkv projection:
 
 * :func:`flash_attention_relpos_lanes` - global blocks (N = 64 x 64 at
   1024 px): forward ``csrc/relpos_global.cu`` (one block per (image, head,
@@ -24,11 +25,25 @@ gradient is wanted the forward kernel also writes every row's log-sum-exp,
 (B, heads, N) fp32 in the log2 domain, which the backward kernel reads
 instead of rebuilding the softmax denominator.
 
+For any other head width the kernels are compiled for (80: ViT-H), and for
+callers that hold q, k and v apart:
+
+* :func:`flash_attention_relpos_packed` - ``qkv`` (B, 3 heads, N, dh) with
+  q, k, v of head h in slots h, heads + h, 2 heads + h, ``r`` (B, heads, N,
+  kh + kw), returns (B, heads, N, dh); ``csrc/relpos_packed.cu``, the
+  windowed kernel for N <= 256 and the global one above. The kernels take
+  strides, so ``qkv`` may be the projection viewed token-major (no relayout
+  copy), and the output then lies token-major too. Its backward is the
+  plain one on any device, as in the JAX package;
+* :func:`flash_attention_relpos` - q, k, v (BH, N, dh) apart with ``rel_h``
+  and ``rel_w``: the one-head case of the packed function.
+
 A CPU tensor goes to the plain PyTorch twins, :func:`relpos_attention_plain`
-(the JAX ``_lanes_xla_ref``) and :func:`relpos_attention_bwd_plain`; a CUDA
-tensor launches the kernels or raises. :func:`plain_attention` is a context
-manager for callers that want the plain twins on the card by name, to
-compare against; the package itself never enters it.
+(the JAX ``_lanes_xla_ref``), :func:`relpos_packed_plain` (the JAX
+``_packed_xla_ref``) and their backwards; a CUDA tensor launches the kernels
+or raises. :func:`plain_attention` is a context manager for callers that
+want the plain twins on the card by name, to compare against; the package
+itself never enters it.
 """
 
 from __future__ import annotations
@@ -43,71 +58,55 @@ LOG2E = 1.4426950408889634
 
 # kernel launches since the last reset; each wrapper adds one per launch
 LAUNCHES: Dict[str, int] = {"relpos_global": 0, "relpos_window": 0,
-                            "relpos_global_bwd": 0, "relpos_window_bwd": 0}
+                            "relpos_global_bwd": 0, "relpos_window_bwd": 0,
+                            "relpos_packed_global": 0,
+                            "relpos_packed_window": 0,
+                            # the microbench's variants of the packed kernel
+                            "relpos_packed_onehot": 0,
+                            "relpos_packed_bf16exp": 0}
 
-KERNEL_HEAD_DIM = 64  # head width the kernels are written for
+# head width of the token-major (lanes) kernels; other widths go through
+# flash_attention_relpos_packed
+KERNEL_HEAD_DIM = 64
+PACKED_HEAD_DIMS = (64, 80)  # head widths the packed kernels are compiled for
 _WINDOW_MAX_N = 256
+_MAX_GRID_YZ = 65535  # CUDA's limit on a launch grid's y and z extents
 _MAX_RR = 256     # kh + kw bound of the kernels' shared-memory r rows
 
 
-def relpos_attention_plain(qkv: torch.Tensor, r: torch.Tensor, scale: float,
-                           grid_hw: Tuple[int, int], heads: int) -> torch.Tensor:
-    """softmax(q.k * scale + rel_h[q, ky] + rel_w[q, kx]) . v per head, as
-    plain tensor ops (scores and softmax in fp32, or fp64 for fp64 inputs;
-    P cast to v's dtype)."""
-    b, n, c3 = qkv.shape
-    c = c3 // 3
-    dh = c // heads
-    kh, kw = grid_hw
-    rr = kh + kw
-    ft = torch.float64 if qkv.dtype == torch.float64 else torch.float32
+def _float_type(x: torch.Tensor) -> torch.dtype:
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
-    def split(x, width):
-        return x.reshape(b, n, heads, width).transpose(1, 2)
 
-    q = split(qkv[..., :c], dh)
-    k = split(qkv[..., c:2 * c], dh)
-    v = split(qkv[..., 2 * c:], dh)
-    rb = split(r, rr).to(ft) / LOG2E
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            r: torch.Tensor, scale: float, grid_hw: Tuple[int, int]
+            ) -> torch.Tensor:
+    """The plain forward on head-major operands: q, k, v (B, H, N, dh) and
+    r (B, H, N, kh + kw), r times log2(e); (B, H, N, dh)."""
+    kh, _ = grid_hw
+    ft = _float_type(q)
+    rb = r.to(ft) / LOG2E
     s = torch.matmul(q.to(ft), k.to(ft).transpose(-1, -2)) * scale
     bias = (rb[..., :kh, None] + rb[..., None, kh:]).reshape(s.shape)
     p = torch.softmax(s + bias, dim=-1).to(v.dtype)
-    return torch.matmul(p, v).transpose(1, 2).reshape(b, n, c)
+    return torch.matmul(p, v)
 
 
-def relpos_attention_bwd_plain(qkv: torch.Tensor, r: torch.Tensor,
-                               out: torch.Tensor, dout: torch.Tensor,
-                               scale: float, grid_hw: Tuple[int, int],
-                               heads: int
-                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dqkv, dr) of :func:`relpos_attention_plain` by the explicit
-    formulas, fp32 inside (fp64 for fp64 inputs):
+def _attend_bwd(q, k, v, r, o, do, scale: float, grid_hw: Tuple[int, int],
+                dt: torch.dtype):
+    """(dq, dk, dv, dr) of :func:`_attend` by the explicit formulas, all
+    operands head-major and already fp32 (fp64 for fp64 inputs):
 
         P = softmax(s);  dP = dO V^T;  dS = P * (dP - rowsum(dO * O))
         dQ = scale dS K;  dK = scale dS^T Q;  dV = P^T dO
         dr_h[q, ky] = sum_kx dS / log2e;  dr_w[q, kx] = sum_ky dS / log2e
 
-    P and dS enter the three products rounded to the inputs' dtype, as the
-    forward's P does (a no-op in fp32)."""
-    b, n, c3 = qkv.shape
-    c = c3 // 3
-    dh = c // heads
+    P and dS enter the three products rounded to ``dt``, the inputs' dtype,
+    as the forward's P does (a no-op in fp32)."""
     kh, kw = grid_hw
-    rr = kh + kw
-    dt = qkv.dtype
-    ft = torch.float64 if dt == torch.float64 else torch.float32
-
-    def split(x, width):
-        return x.reshape(b, n, heads, width).transpose(1, 2).to(ft)
-
-    def merge(x):
-        return x.transpose(1, 2).reshape(b, n, -1)
-
-    q = split(qkv[..., :c], dh)
-    k = split(qkv[..., c:2 * c], dh)
-    v = split(qkv[..., 2 * c:], dh)
-    o, do = split(out, dh), split(dout, dh)
-    rb = split(r, rr) / LOG2E
+    b, heads, n, _ = q.shape
+    ft = q.dtype
+    rb = r / LOG2E
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     s += (rb[..., :kh, None] + rb[..., None, kh:]).reshape(b, heads, n, n)
     p = torch.softmax(s, dim=-1)
@@ -123,8 +122,70 @@ def relpos_attention_bwd_plain(qkv: torch.Tensor, r: torch.Tensor,
     del p
     dq = torch.matmul(ds, k) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
-    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(dt)
+    return dq, dk, dv, dr
+
+
+def relpos_attention_plain(qkv: torch.Tensor, r: torch.Tensor, scale: float,
+                           grid_hw: Tuple[int, int], heads: int) -> torch.Tensor:
+    """softmax(q.k * scale + rel_h[q, ky] + rel_w[q, kx]) . v per head, as
+    plain tensor ops (scores and softmax in fp32, or fp64 for fp64 inputs;
+    P cast to v's dtype), on the token-major layout."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+
+    def split(x):
+        return x.reshape(b, n, heads, -1).transpose(1, 2)
+
+    out = _attend(split(qkv[..., :c]), split(qkv[..., c:2 * c]),
+                  split(qkv[..., 2 * c:]), split(r), scale, grid_hw)
+    return out.transpose(1, 2).reshape(b, n, c)
+
+
+def relpos_attention_bwd_plain(qkv: torch.Tensor, r: torch.Tensor,
+                               out: torch.Tensor, dout: torch.Tensor,
+                               scale: float, grid_hw: Tuple[int, int],
+                               heads: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dqkv, dr) of :func:`relpos_attention_plain` (see
+    :func:`_attend_bwd`)."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    ft = _float_type(qkv)
+
+    def split(x):
+        return x.reshape(b, n, heads, -1).transpose(1, 2).to(ft)
+
+    def merge(x):
+        return x.transpose(1, 2).reshape(b, n, -1)
+
+    dq, dk, dv, dr = _attend_bwd(
+        split(qkv[..., :c]), split(qkv[..., c:2 * c]), split(qkv[..., 2 * c:]),
+        split(r), split(out), split(dout), scale, grid_hw, qkv.dtype)
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(qkv.dtype)
     return dqkv, merge(dr).to(r.dtype)
+
+
+def relpos_packed_plain(qkv: torch.Tensor, r: torch.Tensor, scale: float,
+                        grid_hw: Tuple[int, int], heads: int) -> torch.Tensor:
+    """The same function on the packed layout (the JAX ``_packed_xla_ref``):
+    qkv (B, 3 heads, N, dh), r (B, heads, N, kh + kw); (B, heads, N, dh)."""
+    return _attend(qkv[:, :heads], qkv[:, heads:2 * heads],
+                   qkv[:, 2 * heads:], r, scale, grid_hw)
+
+
+def relpos_packed_bwd_plain(qkv: torch.Tensor, r: torch.Tensor,
+                            out: torch.Tensor, dout: torch.Tensor,
+                            scale: float, grid_hw: Tuple[int, int],
+                            heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dqkv, dr) of :func:`relpos_packed_plain` (see :func:`_attend_bwd`).
+    It materialises (B, heads, N, N) arrays in fp32: 1 GiB each for one
+    ViT-H image at 1024 px."""
+    ft = _float_type(qkv)
+    dq, dk, dv, dr = _attend_bwd(
+        qkv[:, :heads].to(ft), qkv[:, heads:2 * heads].to(ft),
+        qkv[:, 2 * heads:].to(ft), r.to(ft), out.to(ft), dout.to(ft), scale,
+        grid_hw, qkv.dtype)
+    return torch.cat([dq, dk, dv], dim=1).to(qkv.dtype), dr.to(r.dtype)
 
 
 # True only inside plain_attention()
@@ -133,7 +194,7 @@ _plain_requested = False
 
 @contextlib.contextmanager
 def plain_attention() -> Iterator[None]:
-    """Inside this block the two attention functions use their plain twins
+    """Inside this block the attention functions use their plain twins
     (forward and backward) on any device and launch no kernel. For callers
     that hold the kernels against the plain versions on the card."""
     global _plain_requested
@@ -144,33 +205,40 @@ def plain_attention() -> Iterator[None]:
         _plain_requested = old
 
 
+def _check_operands(qkv: torch.Tensor, r: torch.Tensor, n: int,
+                    grid_hw: Tuple[int, int], r_shape: Tuple[int, ...]
+                    ) -> None:
+    """What both layouts ask of qkv and r."""
+    kh, kw = grid_hw
+    if n != kh * kw:
+        raise ValueError(f"token count {n} != kh * kw = {kh} * {kw}")
+    if kh + kw > _MAX_RR:
+        raise ValueError(f"kh + kw = {kh + kw} exceeds {_MAX_RR}")
+    if tuple(r.shape) != r_shape:
+        raise ValueError(f"r must be {r_shape}, got {tuple(r.shape)}")
+    if qkv.dtype not in (torch.float32, torch.bfloat16) or r.dtype != qkv.dtype:
+        raise TypeError(f"qkv and r must share dtype fp32 or bf16, got "
+                        f"{qkv.dtype} and {r.dtype}")
+    if qkv.device != r.device:
+        raise ValueError(f"qkv on {qkv.device}, r on {r.device}")
+
+
 def _check(qkv: torch.Tensor, r: torch.Tensor, grid_hw: Tuple[int, int],
            heads: int, max_n: int = 0) -> None:
     if qkv.dim() != 3 or r.dim() != 3:
         raise ValueError(f"qkv and r must be 3-D, got {tuple(qkv.shape)} "
                          f"and {tuple(r.shape)}")
     b, n, c3 = qkv.shape
-    kh, kw = grid_hw
     if c3 % (3 * heads):
         raise ValueError(f"qkv width {c3} is not 3 * heads * dh")
     dh = c3 // (3 * heads)
     if dh != KERNEL_HEAD_DIM:
-        raise ValueError(f"head width must be {KERNEL_HEAD_DIM}, got {dh}")
-    if n != kh * kw:
-        raise ValueError(f"token count {n} != kh * kw = {kh} * {kw}")
-    if kh + kw > _MAX_RR:
-        raise ValueError(f"kh + kw = {kh + kw} exceeds {_MAX_RR}")
+        raise ValueError(f"head width must be {KERNEL_HEAD_DIM}, got {dh}; "
+                         f"flash_attention_relpos_packed takes other widths")
     if max_n and n > max_n:
         raise ValueError(f"windowed kernel takes at most {max_n} tokens, "
                          f"got {n}")
-    if tuple(r.shape) != (b, n, heads * (kh + kw)):
-        raise ValueError(f"r must be {(b, n, heads * (kh + kw))}, got "
-                         f"{tuple(r.shape)}")
-    if qkv.dtype not in (torch.float32, torch.bfloat16) or r.dtype != qkv.dtype:
-        raise TypeError(f"qkv and r must share dtype fp32 or bf16, got "
-                        f"{qkv.dtype} and {r.dtype}")
-    if qkv.device != r.device:
-        raise ValueError(f"qkv on {qkv.device}, r on {r.device}")
+    _check_operands(qkv, r, n, grid_hw, (b, n, heads * sum(grid_hw)))
 
 
 def _check_launch(kernel: str, **tensors: torch.Tensor) -> None:
@@ -288,6 +356,129 @@ def flash_attention_relpos_lanes_batched(qkv: torch.Tensor, r: torch.Tensor,
     _check(qkv, r, grid_hw, heads, max_n=_WINDOW_MAX_N)
     return RelposAttention.apply(qkv, r, scale, grid_hw, heads,
                                  "relpos_window")
+
+
+def _check_packed(qkv: torch.Tensor, r: torch.Tensor,
+                  grid_hw: Tuple[int, int], heads: int) -> None:
+    if qkv.dim() != 4 or r.dim() != 4:
+        raise ValueError(f"qkv and r must be 4-D, got {tuple(qkv.shape)} "
+                         f"and {tuple(r.shape)}")
+    b, slots, n, _ = qkv.shape
+    if slots != 3 * heads:
+        raise ValueError(f"qkv has {slots} slots, expected 3 * heads = "
+                         f"{3 * heads}")
+    _check_operands(qkv, r, n, grid_hw, (b, heads, n, sum(grid_hw)))
+
+
+def _token_major(x: torch.Tensor) -> bool:
+    """Whether a (B, slots, N, dh) tensor keeps a token's slots together,
+    as the qkv projection does."""
+    return x.stride(1) < x.stride(2)
+
+
+def _launch_packed(kernel: str, qkv: torch.Tensor, r: torch.Tensor,
+                   scale: float, grid_hw: Tuple[int, int], heads: int
+                   ) -> torch.Tensor:
+    """Packed kernel ``la_<kernel>`` on strided operands: out (B, heads, N,
+    dh), laid out token-major when ``qkv`` is."""
+    b, _, n, dh = qkv.shape
+    kh, kw = grid_hw
+    for name, x in (("qkv", qkv), ("r", r)):
+        if x.device.type != "cuda":
+            raise ValueError(f"the {kernel} kernel needs CUDA tensors, got "
+                             f"{name} on {x.device}")
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}'s last axis must be contiguous")
+    if dh not in PACKED_HEAD_DIMS:
+        raise ValueError(f"head width must be one of {PACKED_HEAD_DIMS}, got "
+                         f"{dh}")
+    if b > _MAX_GRID_YZ:
+        raise ValueError(f"at most {_MAX_GRID_YZ} images or windows a call, "
+                         f"got {b}")
+    # the kernels copy q, k, v rows 16 bytes at a time
+    per16 = 16 // qkv.element_size()
+    if qkv.data_ptr() % 16 or any(s % per16 for s in qkv.stride()[:3]):
+        raise ValueError(f"qkv rows must be 16-byte aligned, got strides "
+                         f"{qkv.stride()}")
+    from . import _build
+
+    lib = _build.load()
+    if _token_major(qkv):
+        out = torch.empty((b, n, heads, dh), dtype=qkv.dtype,
+                          device=qkv.device).permute(0, 2, 1, 3)
+    else:
+        out = torch.empty((b, heads, n, dh), dtype=qkv.dtype,
+                          device=qkv.device)
+    strides = (ctypes.c_longlong * 9)(*qkv.stride()[:3], *r.stride()[:3],
+                                      *out.stride()[:3])
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, "la_" + kernel)(
+            qkv.data_ptr(), r.data_ptr(), out.data_ptr(), b, n, heads, kh, kw,
+            dh, ctypes.c_float(scale), int(qkv.dtype == torch.bfloat16),
+            strides, stream)
+    _build.check(lib, err, "la_" + kernel)
+    LAUNCHES[kernel] += 1
+    return out
+
+
+class RelposPackedAttention(torch.autograd.Function):
+    """``(qkv, r) -> out`` on the packed layout: the kernel forward
+    (``la_relpos_packed_window`` for N <= 256 tokens, else
+    ``la_relpos_packed_global``) and the plain backward
+    (:func:`relpos_packed_bwd_plain`) on any device: the JAX package has no
+    backward kernel for this layout either, its backward recomputes the
+    plain formula. CPU tensors (and any tensor inside
+    :func:`plain_attention`) take the plain forward."""
+
+    @staticmethod
+    def forward(ctx, qkv, r, scale, grid_hw, heads):
+        ctx.args = (scale, tuple(grid_hw), heads)
+        if _plain_requested or qkv.device.type == "cpu":
+            out = relpos_packed_plain(qkv, r, *ctx.args)
+        else:
+            kernel = ("relpos_packed_window"
+                      if qkv.shape[2] <= _WINDOW_MAX_N
+                      else "relpos_packed_global")
+            out = _launch_packed(kernel, qkv, r, *ctx.args)
+        ctx.save_for_backward(qkv, r, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, r, out = ctx.saved_tensors
+        dqkv, dr = relpos_packed_bwd_plain(qkv, r, out, dout, *ctx.args)
+        return dqkv, dr, None, None, None
+
+
+def flash_attention_relpos_packed(qkv: torch.Tensor, r: torch.Tensor,
+                                  scale: float, grid_hw: Tuple[int, int],
+                                  heads: int) -> torch.Tensor:
+    """Rel-pos attention on the packed layout, any head width the kernels
+    are compiled for (:data:`PACKED_HEAD_DIMS`): ``qkv`` (B, 3 heads, N, dh)
+    with slot ``t * heads + h`` holding tensor t (q, k, v) of head h, ``r``
+    (B, heads, N, kh + kw) times log2(e); returns (B, heads, N, dh). Both
+    may be strided views with a contiguous last axis."""
+    _check_packed(qkv, r, grid_hw, heads)
+    return RelposPackedAttention.apply(qkv, r, scale, grid_hw, heads)
+
+
+def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           rel_h: torch.Tensor, rel_w: torch.Tensor,
+                           scale: float, grid_hw: Tuple[int, int]
+                           ) -> torch.Tensor:
+    """The same attention on q, k, v (BH, N, dh) held apart, with the
+    factored biases ``rel_h`` (BH, N, kh) and ``rel_w`` (BH, N, kw)
+    unscaled: the one-head case of :func:`flash_attention_relpos_packed`."""
+    if not q.shape == k.shape == v.shape:
+        raise ValueError(f"q, k and v must share one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    qkv = torch.stack([q, k, v], dim=1)
+    r = (torch.cat([rel_h, rel_w], dim=-1).to(_float_type(q))
+         * LOG2E).to(q.dtype)
+    return flash_attention_relpos_packed(qkv, r[:, None], scale, grid_hw,
+                                         1)[:, 0]
 
 
 def reset_launches() -> None:

@@ -1,5 +1,6 @@
 """Device time of the forward rel-pos attention kernels at the serving
-shapes, for comparing two checkouts on one card.
+shapes (ViT-B's lanes kernels, ViT-H's packed kernels), for comparing two
+checkouts on one card.
 
     python labelanything_tpu_torch/ops/time_kernels.py [--root DIR] [--label X]
 
@@ -22,8 +23,12 @@ import sys
 import numpy as np
 import torch
 
-SHAPES = {"relpos_global": (1, (64, 64)), "relpos_window": (25, (14, 14))}
-HEADS = 12
+# kernel: (batch, key grid, heads, head width); ViT-B's lanes kernels, then
+# ViT-H's packed kernels on the token-major view the encoder hands them
+SHAPES = {"relpos_global": (1, (64, 64), 12, 64),
+          "relpos_window": (25, (14, 14), 12, 64),
+          "relpos_packed_global": (1, (64, 64), 16, 80),
+          "relpos_packed_window": (25, (14, 14), 16, 80)}
 
 
 def main() -> None:
@@ -38,16 +43,22 @@ def main() -> None:
 
     fns = {"relpos_global": fa.flash_attention_relpos_lanes,
            "relpos_window": fa.flash_attention_relpos_lanes_batched}
+    packed = getattr(fa, "flash_attention_relpos_packed", None)
     rng = np.random.default_rng(1)
-    for name, (b, (kh, kw)) in SHAPES.items():
+    for name, (b, (kh, kw), heads, dh) in SHAPES.items():
+        if name not in fns and packed is None:
+            continue    # a checkout from before the packed kernels
         n = kh * kw
         qkv = torch.from_numpy(rng.standard_normal(
-            (b, n, 3 * HEADS * 64), np.float32)).cuda().bfloat16()
+            (b, n, 3 * heads * dh), np.float32)).cuda().bfloat16()
         r = torch.from_numpy(0.5 * rng.standard_normal(
-            (b, n, HEADS * (kh + kw)), np.float32)).cuda().bfloat16()
+            (b, n, heads * (kh + kw)), np.float32)).cuda().bfloat16()
+        if name not in fns:
+            qkv = qkv.view(b, n, 3 * heads, dh).permute(0, 2, 1, 3)
+            r = r.view(b, n, heads, kh + kw).permute(0, 2, 1, 3)
 
         def call():
-            return fns[name](qkv, r, 64 ** -0.5, (kh, kw), HEADS)
+            return fns.get(name, packed)(qkv, r, dh ** -0.5, (kh, kw), heads)
 
         def events(count):
             start = torch.cuda.Event(enable_timing=True)

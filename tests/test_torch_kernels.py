@@ -144,3 +144,132 @@ def test_no_lse_without_grad_and_plain_by_name(cuda):
     out = fa.flash_attention_relpos_lanes(qkv, r, 0.125, (8, 8), 2)
     assert fa.LAUNCHES["relpos_global"] == 1 and out.grad_fn is None
     torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
+
+
+# ---- the packed kernels (head widths 64 and 80) -----------------------------
+
+def _packed_inputs(b, grid_hw, heads, dh, dtype, device, token_major, seed=0):
+    """Packed qkv and r, either contiguous slot-major or as token-major
+    views of a projection, as the encoder hands them over."""
+    kh, kw = grid_hw
+    n = kh * kw
+    rng = np.random.default_rng(seed)
+    if token_major:
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, n, 3 * heads, dh), np.float32)).permute(0, 2, 1, 3)
+        r = torch.from_numpy((0.5 * rng.standard_normal(
+            (b, n, heads, kh + kw))).astype(np.float32)).permute(0, 2, 1, 3)
+    else:
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, 3 * heads, n, dh), np.float32))
+        r = torch.from_numpy((0.5 * rng.standard_normal(
+            (b, heads, n, kh + kw))).astype(np.float32))
+    return qkv.to(device, dtype), r.to(device, dtype)
+
+
+PACKED_CASES = [
+    # (batch, grid_hw, heads, dh)
+    (1, (64, 64), 16, 80),     # ViT-H global block, division-free bias
+    (2, (48, 48), 4, 80),      # general bias path
+    (2, (16, 48), 2, 64),
+    (1, (17, 19), 3, 80),      # ragged query and key tiles
+    (25, (14, 14), 16, 80),    # ViT-H windowed block
+    (4, (3, 3), 2, 80),
+    (3, (16, 16), 2, 64),      # the windowed kernel's 256-token maximum
+    (2, (7, 9), 1, 64),
+]
+
+
+@pytest.mark.parametrize("token_major", [True, False])
+@pytest.mark.parametrize("b,grid_hw,heads,dh", PACKED_CASES)
+def test_packed_kernel_matches_plain(cuda, b, grid_hw, heads, dh,
+                                     token_major):
+    counter = ("relpos_packed_window" if grid_hw[0] * grid_hw[1] <= 256
+               else "relpos_packed_global")
+    args = (dh ** -0.5, grid_hw, heads)
+    qkv, r = _packed_inputs(b, grid_hw, heads, dh, torch.float32, cuda,
+                            token_major)
+    assert fa._token_major(qkv) == token_major
+    before = fa.LAUNCHES[counter]
+    out = fa.flash_attention_relpos_packed(qkv, r, *args)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[counter] == before + 1
+    # the output lies as the input does (with one head both orders coincide)
+    assert fa._token_major(out) == (token_major and heads > 1)
+    ref = fa.relpos_packed_plain(qkv, r, *args)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+    qb, rb = qkv.bfloat16(), r.bfloat16()
+    out_b = fa.flash_attention_relpos_packed(qb, rb, *args)
+    ok, diff, floor = _bf16_ok(
+        out_b, fa.relpos_packed_plain(qb, rb, *args),
+        fa.relpos_packed_plain(qb.float(), rb.float(), *args))
+    assert out_b.dtype == torch.bfloat16 and ok, (diff, floor)
+    # the other layout of the same values gives the same bits
+    other = fa.flash_attention_relpos_packed(qb.contiguous(), rb.contiguous(),
+                                             *args)
+    assert torch.equal(other, out_b)
+
+
+def test_packed_kernel_gradient_and_unpacked_entry(cuda):
+    """Kernel forward, plain backward: the gradients of autograd through
+    the plain twin (fp32, rtol = atol = 1e-4); ``flash_attention_relpos``
+    launches the same kernel with one head."""
+    b, grid_hw, heads, dh = 2, (14, 14), 2, 80
+    args = (dh ** -0.5, grid_hw, heads)
+    qkv, r = _packed_inputs(b, grid_hw, heads, dh, torch.float32, cuda, True)
+    ct = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (b, heads, 196, dh), np.float32)).to(cuda)
+    grads = []
+    for fn in (fa.flash_attention_relpos_packed, fa.relpos_packed_plain):
+        a, c = qkv.detach().requires_grad_(), r.detach().requires_grad_()
+        grads.append(torch.autograd.grad(fn(a, c, *args), (a, c), ct))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+    q, k, v = (qkv[:, i].contiguous() for i in (0, heads, 2 * heads))
+    rel = r[:, 0] / fa.LOG2E
+    before = fa.LAUNCHES["relpos_packed_window"]
+    out = fa.flash_attention_relpos(q, k, v, rel[..., :14], rel[..., 14:],
+                                    args[0], grid_hw)
+    assert fa.LAUNCHES["relpos_packed_window"] == before + 1
+    ref = fa.relpos_packed_plain(qkv, r, *args)[:, 0]
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_packed_kernel_rejects_bad_input(cuda):
+    """A head width the kernels were not compiled for, an unaligned view
+    or a strided last axis raises on the card; nothing reaches the twin."""
+    fa.reset_launches()
+    qkv, r = _packed_inputs(1, (8, 8), 2, 32, torch.float32, cuda, False)
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_attention_relpos_packed(qkv, r, 0.2, (8, 8), 2)
+    qkv, r = _packed_inputs(1, (8, 8), 2, 80, torch.bfloat16, cuda, False)
+    wide = torch.cat([qkv, qkv], -1)
+    with pytest.raises(ValueError, match="last axis"):
+        fa.flash_attention_relpos_packed(wide[..., ::2], r, 0.1, (8, 8), 2)
+    shifted = torch.cat([qkv, qkv], -1)[..., 4:84]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_relpos_packed(shifted, r, 0.1, (8, 8), 2)
+    with pytest.raises(TypeError):
+        fa.flash_attention_relpos_packed(qkv.half(), r.half(), 0.1, (8, 8), 2)
+    assert not any(fa.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("heads,dh", [(12, 64), (16, 80)])
+def test_microbench_variants_match_plain(cuda, heads, dh):
+    """The score-dtype microbench's variants of the packed global kernel
+    within 4 x the bf16 floor of the plain twin (``errors`` raises
+    otherwise), each through its own kernel."""
+    from labelanything_tpu_torch.ops import microbench_softmax_dtype as mb
+
+    fa.reset_launches()
+    errs = mb.errors(heads, dh)
+    assert sorted(errs) == ["a", "e", "f"]
+    for mode, kernel in mb.VARIANTS.items():
+        assert fa.LAUNCHES[kernel] == 1, (mode, fa.LAUNCHES)
+    qkv, r = mb.inputs(1, heads, dh)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        # the variants take only key grids whose rows are 64 wide
+        mb.run_variant(qkv[:, :, :48 * 48], r[:, :, :48 * 48, :96],
+                       dh ** -0.5, (48, 48), heads, "f")

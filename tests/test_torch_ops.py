@@ -170,8 +170,10 @@ def test_relpos_cuda_route_never_falls_back():
     with tfa.plain_attention():
         assert tfa._plain_requested
     assert not tfa._plain_requested
-    assert sorted(tfa.LAUNCHES) == ["relpos_global", "relpos_global_bwd",
-                                    "relpos_window", "relpos_window_bwd"]
+    assert sorted(tfa.LAUNCHES) == [
+        "relpos_global", "relpos_global_bwd", "relpos_packed_bf16exp",
+        "relpos_packed_global", "relpos_packed_onehot",
+        "relpos_packed_window", "relpos_window", "relpos_window_bwd"]
 
 
 @pytest.mark.parametrize("fn", [tfa.flash_attention_relpos_lanes,
@@ -205,6 +207,8 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.ops.flash_attention",
                "labelanything_tpu_torch.ops._build",
                "labelanything_tpu_torch.ops.time_kernels",
+               "labelanything_tpu_torch.ops.microbench_softmax_dtype",
+               "labelanything_tpu_torch.models.build_encoder",
                "labelanything_tpu_torch.utils.weights",
                "labelanything_tpu_torch.train.losses",
                "labelanything_tpu_torch.train.optim",
