@@ -1,6 +1,6 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: ViT-B serving and a
-fine-tune training step, then the ViT-H and ViT-L encoders (serving and
-embedding).
+fine-tune training step, the ViT-H and ViT-L encoders (serving and
+embedding), then episode decode on precomputed embeddings.
 
 Run from the repository root, with no arguments:
 
@@ -9,7 +9,7 @@ Run from the repository root, with no arguments:
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 0. card: a CUDA device must be present; prints its name and power limit;
-1. build: compiles the rel-pos attention kernels (``labelanything_tpu_torch/
+1. build: compiles the kernels (``labelanything_tpu_torch/
    csrc``) with nvcc for sm_90a, one compiler per source;
 2. kernels: each kernel against its plain PyTorch twin at the shapes its
    path gives it (forward: serving, 1 image / 25 windows; backward: the
@@ -29,7 +29,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bit for bit, the general bias path on 48 x 48, and a gradient through
    the autograd function (kernel forward, plain backward) against autograd
    through the plain twin. The score-dtype microbench runs once at batch 1:
-   its variants of the packed global kernel against the twin, timed;
+   its variants of the packed global kernel against the twin, timed. The
+   fused TwoWayTransformer kernel is held against ``twoway_plain`` at the
+   decode path's two call sites (96 and 16 instances of 900 image tokens
+   against 6 tokens, width 256), both outputs, fp32 and bf16 by the same
+   rules, with a gradient through its autograd function against autograd
+   through the twin; kernel, twin and the module path are timed;
 3. slice parity: a 1-way 1-shot episode at 1024 px through the full fp32
    slice on the GPU (kernels) and on the CPU (plain twins), logits within
    rtol 1e-3 / atol 5e-4 and argmax agreement > 0.999;
@@ -69,7 +74,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    + 20 windowed lanes kernels; a profiler pass over one ``lam_h`` request;
 9. embedding: ``build_vit_h`` and ``build_vit_l`` in bf16 with the SAM neck
    on a batch of 8 images at 1024 px: 1 warm-up and 3 timed calls, images
-   per second, peak memory, output (8, 64, 64, 256) finite.
+   per second, peak memory, output (8, 64, 64, 256) finite;
+10. decode parity (fp32): ``lam_no_vit`` (the model block of
+   parameters/trainval/coco20i/mae.yaml: 480 px, 768-wide embeddings, width
+   256) on 2 episodes of 5-way 1-shot, with and without mask prompts, on
+   the card (fused kernel) against the CPU (plain twins) as phase 3; and on
+   the card the shared-keys form of the prompt encoder's fusion against the
+   expanded one, same tolerance;
+11. decode (bf16): the JAX package's ``bench_decode``: two batches of 16
+   episodes of 5-way 1-shot alternating, 1 warm-up and 8 timed steps, with
+   masks and without: episodes per second, peak memory, logits (16, 6, 480,
+   480) finite in the valid region, 2 fused-kernel launches a step; the
+   split entry points; a profiler pass; the same steps inside
+   ``plain_attention()`` (the module path) and with the shared-keys form.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. The models are the repo's LAM
@@ -96,8 +113,10 @@ from labelanything_tpu_torch.models.build_encoder import (build_vit_h,
                                                           build_vit_l)
 from labelanything_tpu_torch.models.build_lam import build_lam
 from labelanything_tpu_torch.models.image_encoder import ImageEncoderViT
+from labelanything_tpu_torch.models.transformer import TwoWayTransformer
 from labelanything_tpu_torch.ops import _build
 from labelanything_tpu_torch.ops import flash_attention as fa
+from labelanything_tpu_torch.ops import fused_twoway as ft
 from labelanything_tpu_torch.ops import microbench_softmax_dtype as microbench
 from labelanything_tpu_torch.parallel.train_step import (init_train_state,
                                                          make_train_step)
@@ -116,6 +135,24 @@ CONFIG = dict(name="lam_b", spatial_convs=3, class_attention=False,
 # the same block with the SAM ViT-H and ViT-L encoders
 CONFIG_H = dict(CONFIG, name="lam_h", image_embed_dim=1280)
 CONFIG_L = dict(CONFIG, name="lam_l", image_embed_dim=1024)
+# the model block of parameters/trainval/coco20i/mae.yaml
+CONFIG_DECODE = dict(name="lam_no_vit", spatial_convs=3, class_attention=False,
+                     example_attention=False, example_class_attention=True,
+                     fusion_transformer="TwoWayTransformer",
+                     image_embed_dim=768, embed_dim=256, image_size=480,
+                     class_encoder={"name": "RandomMatrixEncoder",
+                                    "bank_size": 100, "embed_dim": 256})
+# bench_decode's episodes: 16 of 5-way 1-shot; the prompt encoder's fusion
+# then runs 16 x 1 x 6 instances, the mask decoder's 16, each of 30 x 30
+# image tokens against 6 tokens
+DECODE_BATCH, DECODE_CLASSES, DECODE_STEPS = 16, 6, 8
+DECODE_LAUNCHES = {"fused_twoway": 2}   # a forward: both transformers
+TWOWAY = dict(name="fused_twoway", s=900, n=6, d=256, heads=8, mlp=2048,
+              depth=2, inner=128,
+              source="labelanything_tpu_torch/csrc/fused_twoway.cu",
+              replaces="labelanything_tpu/ops/fused_twoway.py:289")
+TWOWAY_SITES = {"prompt_encoder": DECODE_BATCH * DECODE_CLASSES,
+                "mask_decoder": DECODE_BATCH}
 SEED = 0
 HEADS = 12
 SCALE = 64 ** -0.5
@@ -557,7 +594,159 @@ def phase_kernels() -> dict:
               f"library {s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} "
               f"ms by {s['bound_by']}")
     results.update(variants)
+    results.update(check_twoway())
     return results
+
+
+def twoway_bound(g: int) -> dict:
+    """Least time the card could take for the two-way transformer on ``g``
+    instances in bf16. Operations: per block the three image-side
+    projections and the out projection (8 S D I), both cross-attentions'
+    scores and value products (8 N S I), the tokens' self-attention (8 N D^2
+    + 4 N^2 D), cross projections (8 N D I) and MLP (4 N D mlp); at the end
+    two image-side projections (4 S D I), scores and values (4 N S I) and
+    the tokens' projections (4 N D I). Bytes: keys and queries in and out
+    (bf16), the positional grid, and the parameters as the function is
+    handed them (fp32), each once."""
+    k = TWOWAY
+    s, n, d, i, mlp = k["s"], k["n"], k["d"], k["inner"], k["mlp"]
+    block = (8 * s * d * i + 8 * n * s * i + 8 * n * d * d + 4 * n * n * d
+             + 8 * n * d * i + 4 * n * d * mlp)
+    final = 4 * s * d * i + 4 * n * s * i + 4 * n * d * i
+    flops = g * (k["depth"] * block + final)
+    attn = lambda inner: 2 * d * inner + 2 * d * inner + inner + inner \
+        + inner + d
+    n_params = (k["depth"] * (attn(d) + 2 * attn(i) + 2 * d * mlp + mlp + d
+                              + 8 * d) + attn(i) + 2 * d)
+    nbytes = 2 * (2 * g * (s + n) * d + s * d) + 4 * n_params
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes)
+
+
+def twoway_gradient_error(got: list, ref: list) -> float:
+    """Worst error of a gradient tensor over its own largest entry. Tensors
+    whose largest entry is under 1e-6 of the largest over all tensors (the
+    key projections' biases, whose gradient is zero in exact arithmetic) hold
+    rounding only: they must stay under that floor and count as exact."""
+    floor = 1e-6 * max(y.abs().max().item() for y in ref)
+    worst = 0.0
+    for x, y in zip(got, ref):
+        scale = y.abs().max().item()
+        if scale < floor:
+            check(x.abs().max().item() < floor, "fused_twoway: a gradient "
+                  "that is zero in exact arithmetic is not")
+        else:
+            worst = max(worst, (x - y).abs().max().item() / scale)
+    return worst
+
+
+def check_twoway() -> dict:
+    """The fused TwoWayTransformer kernel against ``twoway_plain`` at both
+    call sites of the decode path; the summary's numbers are those of the
+    prompt encoder's site."""
+    k = TWOWAY
+    tr = TwoWayTransformer(k["depth"], k["d"], k["heads"], k["mlp"],
+                           dtype=torch.bfloat16).cuda()
+    init_weights(tr, SEED)
+    params = ft.twoway_params(tr)
+    check(len(params) == ft.twoway_param_count(k["depth"]) and sum(
+        p.numel() for p in params) == (twoway_bound(1)["bytes"]
+                                       - 2 * (2 * (k["s"] + k["n"]) * k["d"]
+                                              + k["s"] * k["d"])) // 4,
+          "fused_twoway: the bound's parameter count")
+    args = (params, k["depth"], k["heads"])
+    grid = int(k["s"] ** 0.5)
+    out = {}
+    for site, g in TWOWAY_SITES.items():
+        rng = np.random.default_rng(1)
+        keys, queries, pe = (
+            torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
+            for shape in ((g, k["s"], k["d"]), (g, k["n"], k["d"]),
+                          (k["s"], k["d"])))
+        stats = {}
+        with torch.no_grad():
+            before = fa.LAUNCHES["fused_twoway"]
+            got = ft.fused_twoway_transformer(keys, queries, pe, *args)
+            ref = ft.twoway_plain(keys, queries, pe, *args)
+            torch.cuda.synchronize()
+            check(fa.LAUNCHES["fused_twoway"] == before + 1,
+                  "fused_twoway: one launch a call")
+            for x, y in zip(got, ref):
+                torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+            stats["max_abs_err"] = max((x - y).abs().max().item()
+                                       for x, y in zip(got, ref))
+            kb, qb, pb = keys.bfloat16(), queries.bfloat16(), pe.bfloat16()
+            got = ft.fused_twoway_transformer(kb, qb, pb, *args)
+            ref = ft.twoway_plain(kb, qb, pb, *args)
+            ref32 = ft.twoway_plain(kb.float(), qb.float(), pb.float(), *args)
+            torch.cuda.synchronize()
+            worst = {}
+            for name, x, y, y32 in zip(("queries", "keys"), got, ref, ref32):
+                err = (x.float() - y.float()).abs().max().item()
+                floor = (y.float() - y32).abs().max().item()
+                check(x.dtype == torch.bfloat16 and err <= 4 * floor + 1e-6,
+                      f"fused_twoway {site} bf16 {name} error {err} > 4 x "
+                      f"floor {floor}")
+                worst[name] = dict(err=err, floor=floor)
+            stats["max_abs_err_bf16"] = max(w["err"] for w in worst.values())
+            stats["bf16_floor"] = max(w["floor"] for w in worst.values())
+            stats["bf16_by_output"] = worst
+            del got, ref, ref32
+            module_args = (kb.view(g, grid, grid, -1),
+                           pb.view(1, grid, grid, -1), qb)
+
+            def module_path():
+                with fa.plain_attention():
+                    return tr(*module_args)
+
+            stats.update(
+                ms=median_ms(lambda: ft.fused_twoway_transformer(kb, qb, pb,
+                                                                 *args)),
+                plain_ms=median_ms(lambda: ft.twoway_plain(kb, qb, pb, *args)),
+                module_ms=median_ms(module_path), library_ms=None,
+                ms_fp32=median_ms(lambda: ft.fused_twoway_transformer(
+                    keys, queries, pe, *args), iters=5),
+                plain_ms_fp32=median_ms(lambda: ft.twoway_plain(
+                    keys, queries, pe, *args), iters=5))
+        out[site] = dict(stats, instances=g, **twoway_bound(g))
+        s = out[site]
+        print(f"kernel fused_twoway, {site}: {g} instances x {k['s']} image "
+              f"tokens x {k['n']} tokens: fp32 err {s['max_abs_err']:.3g}, "
+              f"bf16 err {s['max_abs_err_bf16']:.3g} (floor "
+              f"{s['bf16_floor']:.3g}); bf16 {s['ms']:.4f} ms vs plain "
+              f"{s['plain_ms']:.4f} ms, module path {s['module_ms']:.4f} ms, "
+              f"bound {s['bound_ms']:.4f} ms by {s['bound_by']}; fp32 "
+              f"{s['ms_fp32']:.4f} ms vs plain {s['plain_ms_fp32']:.4f} ms")
+    # gradient: kernel forward, recomputed plain backward, against autograd
+    # through the twin (fp32, mask decoder's site)
+    grads = []
+    for fn in (ft.fused_twoway_transformer, ft.twoway_plain):
+        tr.zero_grad()
+        a, b = keys.detach().requires_grad_(), queries.detach().requires_grad_()
+        before = fa.LAUNCHES["fused_twoway"]
+        q_out, k_out = fn(a, b, pe, *args)
+        (q_out.square().sum() + k_out.square().sum()).backward()
+        check(fa.LAUNCHES["fused_twoway"] - before
+              == int(fn is ft.fused_twoway_transformer),
+              "fused_twoway: launches of the gradient check")
+        grads.append([a.grad, b.grad] + [p.grad.clone() for p in params])
+    torch.cuda.synchronize()
+    worst = twoway_gradient_error(*grads)
+    check(worst <= 1e-3, f"fused_twoway: gradient through the function, "
+          f"relative error {worst}")
+    print(f"kernel fused_twoway: gradient (kernel forward, plain backward) "
+          f"against autograd of the plain twin, {len(grads[0])} tensors, "
+          f"worst error {worst:.3g} of the tensor's largest gradient")
+    tr.zero_grad()
+    summary = dict(out["prompt_encoder"])
+    summary["mask_decoder_site"] = {
+        key: out["mask_decoder"][key]
+        for key in ("instances", "max_abs_err", "max_abs_err_bf16",
+                    "bf16_floor", "ms", "plain_ms", "module_ms", "ms_fp32",
+                    "bound_ms", "bound_by")}
+    return {"fused_twoway": summary}
 
 
 def compare_logits(gpu: np.ndarray, cpu: np.ndarray, what: str) -> None:
@@ -812,7 +1001,7 @@ def profile_steps(run_step, steps: int = 2, unit: str = "step") -> None:
         print(f"profile:   {t / steps:8.3f} ms a {unit}, {n // steps:5d} "
               f"launches  {key[:90]}")
     for t, n, key in sorted(kernels, reverse=True):
-        if "relpos" in key:
+        if "relpos" in key or "twoway" in key:
             print(f"profile:   {t / n:8.4f} ms a launch on the device  "
                   f"{key[:90]}")
 
@@ -1023,6 +1212,141 @@ def phase_embed(build, name: str, per_call: dict) -> dict:
     return launches
 
 
+def decode_batches(batch_size: int, include_masks: bool) -> list:
+    """``bench_decode``'s two distinct episode batches (seeds 0 and 1)."""
+    return [random_batch(batch_size=batch_size, num_examples=1,
+                         num_classes=DECODE_CLASSES, image_size=480,
+                         embed_dim=768, seed=seed, include_masks=include_masks)
+            for seed in (0, 1)]
+
+
+def phase_decode_parity() -> None:
+    for include_masks in (True, False):
+        what = "with masks" if include_masks else "without masks"
+        batch = decode_batches(2, include_masks)[0]
+        logits = {}
+        for name, device, extra in (("cuda", "cuda", {}), ("cpu", "cpu", {}),
+                                    ("shared", "cuda", {"shared_keys": True})):
+            la = LabelAnything(dict(CONFIG_DECODE, dtype="float32", **extra),
+                               device, SEED)
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            out = la.predict(batch)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            logits[name] = out.float().cpu().numpy()
+            # the shared-keys form keeps the prompt encoder off the kernel
+            expected = {"cuda": 2, "cpu": 0, "shared": 1}[name]
+            expect_launches(dict(fa.LAUNCHES), {"fused_twoway": expected},
+                            f"decode parity ({name})")
+            print(f"decode parity, {what}: fp32 forward, {name}, "
+                  f"{time.perf_counter() - t0:.2f} s, fused_twoway launches "
+                  f"{expected}")
+            del la
+        compare_logits(logits["cuda"], logits["cpu"],
+                       f"decode parity, {what}")
+        compare_logits(logits["shared"], logits["cuda"],
+                       f"decode parity, {what}, shared keys against expanded")
+
+
+def decode_steps(la, batches, steps: int) -> tuple:
+    """(seconds of each of ``steps`` forwards alternating the batches, each
+    ended by a synchronize; the last step's logits)."""
+    times = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        out = la(batches[i % 2])[ResultDict.LOGITS]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, out
+
+
+def phase_decode() -> dict:
+    la = LabelAnything(dict(CONFIG_DECODE, dtype="bf16"), seed=SEED)
+    shared = LabelAnything(dict(CONFIG_DECODE, dtype="bf16", shared_keys=True),
+                           seed=SEED)
+    check(next(la.model.parameters()).is_cuda, "lam_no_vit is not on the card")
+    total = {}
+    s = CONFIG_DECODE["image_size"]
+    valid_w = int(s * 0.9)
+    for include_masks in (True, False):
+        what = "with masks" if include_masks else "without masks"
+        batches = [la.to_device(b)
+                   for b in decode_batches(DECODE_BATCH, include_masks)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        decode_steps(la, batches, 1)
+        fa.reset_launches()
+        times, out = decode_steps(la, batches, DECODE_STEPS)
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        expect_launches(launches, {k: v * DECODE_STEPS
+                                   for k, v in DECODE_LAUNCHES.items()},
+                        f"decode {what}")
+        check(tuple(out.shape) == (DECODE_BATCH, DECODE_CLASSES, s, s)
+              and out.dtype == torch.bfloat16, f"decode logits {out.shape}")
+        check(bool(torch.isfinite(out[..., :valid_w]).all()),
+              "decode: non-finite logits in the valid region")
+        check(bool((out[:, 0, :, valid_w:] == 0).all())
+              and bool(torch.isneginf(out[:, 1:, :, valid_w:]).all()),
+              "decode: pad fill")
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+        ms = statistics.median(times) * 1e3
+        # the same steps through the module path and the shared-keys form
+        with fa.plain_attention():
+            decode_steps(la, batches, 1)
+            before = dict(fa.LAUNCHES)
+            plain_times, plain_out = decode_steps(la, batches, DECODE_STEPS)
+            check(dict(fa.LAUNCHES) == before,
+                  "a kernel was launched inside plain_attention()")
+        decode_steps(shared, batches, 1)
+        shared_times, shared_out = decode_steps(shared, batches, DECODE_STEPS)
+        plain_ms = statistics.median(plain_times) * 1e3
+        shared_ms = statistics.median(shared_times) * 1e3
+        diffs = [(x.float() - out.float())[..., :valid_w].abs().max().item()
+                 for x in (plain_out, shared_out)]
+        print(f"decode {what}: {DECODE_BATCH} episodes a step, bf16, steps "
+              f"{[round(t * 1e3, 2) for t in times]} ms, median {ms:.2f} ms = "
+              f"{DECODE_BATCH / ms * 1e3:.1f} episodes/s; module path "
+              f"(plain_attention) median {plain_ms:.2f} ms = "
+              f"{DECODE_BATCH / plain_ms * 1e3:.1f} episodes/s; shared keys "
+              f"median {shared_ms:.2f} ms = "
+              f"{DECODE_BATCH / shared_ms * 1e3:.1f} episodes/s; peak memory "
+              f"{peak / 2**30:.2f} GiB; launches a step "
+              f"{ {k: v // DECODE_STEPS for k, v in nonzero(launches).items()} }"
+              f"; max |logit difference| to the kernel path: module path "
+              f"{diffs[0]:.3g}, shared keys {diffs[1]:.3g} (logit scale "
+              f"{out[..., :valid_w].float().abs().max().item():.3g})")
+        if include_masks:
+            profile_steps(lambda: la(batches[0]), 4, unit="step")
+            with fa.plain_attention():
+                profile_steps(lambda: la(batches[0]), 4,
+                              unit="module-path step")
+    # the split entry points: the support set once, then the query
+    batch = decode_batches(DECODE_BATCH, True)[0]
+    support = {k: v[:, 1:] if k in (BatchKeys.EMBEDDINGS, BatchKeys.DIMS)
+               else v for k, v in batch.items()}
+    fa.reset_launches()
+    embs = la.generate_class_embeddings(support)
+    check(fa.LAUNCHES["fused_twoway"] == 1, "generate_class_embeddings: "
+          "fused_twoway launches")
+    split = la.predict(batch, embs)
+    whole = la.predict(batch)
+    torch.cuda.synchronize()
+    expect_launches(dict(fa.LAUNCHES), {"fused_twoway": 4}, "decode, split")
+    # the support set alone batches the neck's convolutions differently
+    scale = whole[..., :valid_w].float().abs().max().item()
+    diff = (split.float() - whole.float())[..., :valid_w].abs().max().item()
+    print(f"decode: generate_class_embeddings + predict against the whole "
+          f"forward: max |difference| {diff:.3g} at logit scale {scale:.3g}")
+    check(diff <= 0.02 * scale, "decode: the split entry points and the "
+          "whole forward differ")
+    for name, count in fa.LAUNCHES.items():
+        total[name] = total.get(name, 0) + count
+    return total
+
+
 def main() -> None:
     card = phase_card()
     kind = torch.cuda.get_device_name(0)
@@ -1040,8 +1364,10 @@ def main() -> None:
                              requests=1))
     paths.append(phase_embed(build_vit_h, "vit_h", ENCODER_LAUNCHES_H))
     paths.append(phase_embed(build_vit_l, "vit_l", ENCODER_LAUNCHES_L))
+    phase_decode_parity()
+    paths.append(phase_decode())
     summary = []
-    for k in KERNELS + PACKED_KERNELS + VARIANT_KERNELS:
+    for k in KERNELS + PACKED_KERNELS + VARIANT_KERNELS + [TWOWAY]:
         stats = dict(kernel_stats[k["name"]])
         # the variants' main path is the microbench, counted in phase 2
         launches = stats.pop("launches", None)

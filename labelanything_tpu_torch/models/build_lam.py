@@ -3,8 +3,9 @@ reference: label_anything/models/build_lam.py:96-300).
 
 Builders return modules whose parameters are fp32 and whose compute dtype is
 ``dtype``; weights come from :mod:`..utils.weights` (a seeded init or JAX
-parameters). Ported: a SAM ViT-B, ViT-L or ViT-H encoder (or none) with the prototype
-decoder and the two-way fusion transformer.
+parameters). Ported: a SAM ViT-B, ViT-L or ViT-H encoder, or none (precomputed
+embeddings: ``build_lam_no_vit``), with the prototype decoder and the
+two-way fusion transformer.
 """
 
 from __future__ import annotations
@@ -33,10 +34,11 @@ def norm_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return _DTYPES[dtype.lower()]
 
 
-def _two_way(embed_dim: int, dtype: torch.dtype) -> TwoWayTransformer:
+def _two_way(embed_dim: int, dtype: torch.dtype,
+             shared_keys: bool = False) -> TwoWayTransformer:
     return TwoWayTransformer(depth=2, embedding_dim=embed_dim, num_heads=8,
                              mlp_dim=2048, attention_downsample_rate=2,
-                             dtype=dtype)
+                             dtype=dtype, shared_keys=shared_keys)
 
 
 def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
@@ -51,9 +53,15 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
                class_encoder: Optional[dict] = None,
                custom_preprocess: bool = True,
                dtype: Union[str, torch.dtype] = torch.float32,
-               remat_encoder: Union[bool, str, None] = False) -> Lam:
+               remat_encoder: Union[bool, str, None] = False,
+               structured_fusion: bool = True, mask_factor: bool = True,
+               shared_keys: bool = False) -> Lam:
     """Architecture factory (reference: build_lam.py:96-235).
-    ``remat_encoder`` is the image encoder's ``remat``."""
+    ``remat_encoder`` is the image encoder's ``remat``. The last three
+    choose among exact forms of the prompt encoder's fusion (the JAX
+    package's environment switches): ``structured_fusion`` and
+    ``mask_factor`` are ``PromptImageEncoder``'s, ``shared_keys`` its
+    transformer's (``ops/twoway_shared.py`` instead of expanded keys)."""
     if fusion_transformer != "TwoWayTransformer":
         raise NotImplementedError(f"fusion transformer {fusion_transformer!r} "
                                   f"is not ported")
@@ -81,11 +89,12 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
     prompt_encoder = PromptImageEncoder(
         embed_dim=embed_dim, image_embedding_size=(grid, grid),
         input_image_size=(image_size, image_size), mask_in_chans=16,
-        transformer=_two_way(embed_dim, dtype),
+        transformer=_two_way(embed_dim, dtype, shared_keys),
         class_encoder=class_encoder_mod,
         example_class_attention=example_class_attention,
         class_attention=class_attention, example_attention=example_attention,
-        dtype=dtype)
+        dtype=dtype, structured_fusion=structured_fusion,
+        mask_factor=mask_factor)
     mask_decoder = MaskDecoderLam(
         transformer_dim=embed_dim,
         transformer=_two_way(embed_dim, dtype),

@@ -4,11 +4,16 @@ label_anything/models/prompt_encoder.py).
 
 Every episode axis (B batch, M examples, C classes, N annotations) is
 static and validity is carried by flag tensors, as in the JAX package.
-Ported here: the plain fusion path (dense prompt embedding plus support
-features through the two-way transformer for every (example, class)
-instance) and the class / example / class-example merges. The JAX
-package's rank-1 and rank-16 shared-keys paths are exact rewrites of the
-same math and are not ported yet.
+Ported here: the fusion of dense prompt embeddings and support features
+through the two-way transformer for every (example, class) instance, and
+the class / example / class-example merges. The fusion's image operand is
+``features[b, m] + dense[b, m, c]``; as in the JAX package it is handed to
+the transformer factored where it can be (``structured_fusion``): without
+mask prompts ``dense`` is spatially uniform (rank 1), with them it is the
+mask trunk's 16 channels through a 1x1 convolution plus a uniform term
+(rank 16), so the trunk features are resized at 16 channels instead of the
+dense map at ``embed_dim``. Both are exact algebra; what the transformer
+does with the factors is its own choice (``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -131,9 +136,15 @@ class PromptImageEncoder(nn.Module):
                  class_attention: bool = False,
                  example_attention: bool = False, num_heads: int = 8,
                  attention_downsample_rate: int = 2, mlp_dim: int = 2048,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 structured_fusion: bool = True, mask_factor: bool = True):
+        """``structured_fusion=False`` hands the transformer the expanded
+        image operand on every call; ``mask_factor=False`` does so for
+        episodes with mask prompts only."""
         super().__init__()
         d, c = embed_dim, mask_in_chans
+        self.structured_fusion = structured_fusion
+        self.mask_factor = mask_factor
         self.embed_dim = d
         self.image_embedding_size = tuple(image_embedding_size)
         self.input_image_size = tuple(input_image_size)
@@ -210,6 +221,24 @@ class PromptImageEncoder(nn.Module):
         is_null = (mask_flags == Label.NULL)[..., None, None, None]
         return torch.where(is_null, self.not_a_mask_embed.weight[0].to(x.dtype), x)
 
+    def _embed_masks_factored(self, masks, mask_flags):
+        """The dense mask embedding split exactly as ``h2 @ w3 + u``: the
+        mask trunk (everything before the final 1x1 convolution) gives h2
+        (B, M, C, Hm/4, Wm/4, Cm), zeroed for NULL masks; u (B, M, C, D) is
+        the convolution's bias, or ``not_a_mask_embed`` for NULL masks; w3
+        (Cm, D) is the convolution's weight."""
+        b, m, c, hm, wm = masks.shape
+        trunk, conv3 = self.mask_downscaling[:6], self.mask_downscaling[6]
+        x = trunk(masks.reshape(b * m * c, hm, wm, 1))
+        x = x.reshape((b, m, c) + x.shape[1:])
+        is_null = mask_flags == Label.NULL
+        x = torch.where(is_null[..., None, None, None], 0.0, x)
+        dt = self.compute_dtype
+        u = torch.where(is_null[..., None],
+                        self.not_a_mask_embed.weight[0].to(dt),
+                        conv3.bias.to(dt))
+        return x, u, conv3.weight[:, :, 0, 0].t().to(dt)
+
     def _embed_sparse(self, points: Pair, boxes: Pair, bmc) -> torch.Tensor:
         b, m, c = bmc
         parts = []
@@ -262,25 +291,63 @@ class PromptImageEncoder(nn.Module):
                 embeddings.reshape(b, m * c, d)).reshape(b, m, c, d)
         return embeddings
 
+    def _fuse(self, image_embeddings: torch.Tensor, sparse_enc: torch.Tensor,
+              **keys) -> torch.Tensor:
+        """The fusion transformer over the flattened B.M.C axis: fused image
+        features (B*M*C, h, w, D). ``keys`` are the transformer's shift
+        arguments when ``image_embeddings`` holds base maps."""
+        h, w, d = image_embeddings.shape[-3:]
+        n = sparse_enc.shape[3]
+        _, fused = self.transformer(image_embeddings.reshape(-1, h, w, d),
+                                    self.get_dense_pe(),
+                                    sparse_enc.reshape(-1, n, d), **keys)
+        return fused.reshape(-1, h, w, d)
+
     def forward(self, image_embeddings: torch.Tensor, points: Pair, boxes: Pair,
                 masks: Pair, flag_examples: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> dict:
         """``generator``: the class encoder's row draw (training); None
         gives every class its own row."""
-        sparse, dense = self.embed_points_masks(points, boxes, masks)
-        b, m, c = dense.shape[:3]
         h, w = image_embeddings.shape[2:4]
-        if (h, w) != tuple(dense.shape[3:5]):
-            dense = resize_bilinear(dense.reshape((-1,) + dense.shape[3:]),
-                                    (h, w), spatial_axes=(1, 2)
-                                    ).reshape((b, m, c, h, w, -1))
-        src = image_embeddings[:, :, None] + dense
-        dense_enc, sparse_enc = self.class_encoder(src, sparse, generator)
         d = self.embed_dim
-        _, keys = self.transformer(dense_enc.reshape(b * m * c, h, w, d),
-                                   self.get_dense_pe(),
-                                   sparse_enc.reshape(b * m * c, -1, d))
-        src = keys.reshape(b * m * c, h, w, d)
+        # the class encoders add one row per class, uniform over the map, so
+        # the image operand is features[b, m] + <structured correction>
+        factored = (masks is not None and self.structured_fusion
+                    and self.mask_factor)
+        uniform = masks is None and self.structured_fusion
+        if factored:
+            b, m, c = masks[0].shape[:3]
+            sparse = self._embed_sparse(points, boxes, (b, m, c))
+            h2, u, w3 = self._embed_masks_factored(*masks)
+            if (h, w) != tuple(h2.shape[3:5]):
+                # the 1x1 convolution is linear per channel, so it commutes
+                # with the bilinear resize: resize the trunk's 16 channels
+                h2 = resize_bilinear(h2.reshape((-1,) + h2.shape[3:]), (h, w),
+                                     spatial_axes=(1, 2))
+            shift, sparse_enc = self.class_encoder(
+                u[:, :, :, None, None, :], sparse, generator)
+            src = self._fuse(image_embeddings, sparse_enc,
+                             image_shift=shift.reshape(b * m * c, d),
+                             image_shift_map=h2.reshape(b * m * c, h, w, -1),
+                             image_shift_proj=w3)
+        elif uniform:
+            sparse, _ = self.embed_points_masks(points, boxes, None)
+            b, m, c = sparse.shape[:3]
+            proxy = self.no_mask_embed.weight[0].to(self.compute_dtype).expand(
+                b, m, c, 1, 1, d)
+            shift, sparse_enc = self.class_encoder(proxy, sparse, generator)
+            src = self._fuse(image_embeddings, sparse_enc,
+                             image_shift=shift.reshape(b * m * c, d))
+        else:
+            sparse, dense = self.embed_points_masks(points, boxes, masks)
+            b, m, c = dense.shape[:3]
+            if (h, w) != tuple(dense.shape[3:5]):
+                dense = resize_bilinear(dense.reshape((-1,) + dense.shape[3:]),
+                                        (h, w), spatial_axes=(1, 2)
+                                        ).reshape((b, m, c, h, w, -1))
+            dense_enc, sparse_enc = self.class_encoder(
+                image_embeddings[:, :, None] + dense, sparse, generator)
+            src = self._fuse(dense_enc, sparse_enc)
 
         embeddings = self.prompt_class_information_merge(
             src.mean(dim=(1, 2)).reshape(b, m, c, d))

@@ -2,17 +2,34 @@
 ``labelanything_tpu/models/transformer.py``; reference:
 label_anything/models/transformer.py). Image tensors arrive channels-last
 (B, H, W, D) and are flattened to (B, HW, D); token tensors are (B, N, D).
-Only the plain module path is ported: the JAX package's blockdiag and fused
-forms are reformulations of the same math for the TPU."""
+
+``TwoWayTransformer.forward`` has three forms of the same function:
+
+* the module path, block by block through ``Attention`` and ``LayerNorm``;
+* the fused kernel (``ops/fused_twoway.py``, one CUDA kernel for the whole
+  transformer), taken when ``fused_twoway_ok`` admits the call and one
+  positional grid serves all instances: a rule on device, dtype and shape
+  alone. Inside ``ops.flash_attention.plain_attention()`` the module path
+  is taken instead;
+* the shared-keys form (``ops/twoway_shared.py``), for keys given as base
+  maps plus a per-instance shift, when the module was built with
+  ``shared_keys=True``: plain tensor code that runs the first block's
+  image side once per base map.
+
+The JAX package's block-diagonal lane layouts are the TPU's and are not
+ported."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import flash_attention as fa
+from ..ops import fused_twoway as ft
+from ..ops.twoway_shared import twoway_shared
 from .common import Attention, LayerNorm, MLPBlock
 
 
@@ -64,8 +81,19 @@ class TwoWayTransformer(nn.Module):
 
     def __init__(self, depth: int, embedding_dim: int, num_heads: int,
                  mlp_dim: int, attention_downsample_rate: int = 2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 shared_keys: bool = False):
+        """``shared_keys``: take ``ops.twoway_shared`` for keys given as base
+        maps plus shifts (``image_shift``); without it they are expanded
+        and go the way of any other keys."""
         super().__init__()
+        self.depth = depth
+        self.embedding_dim = embedding_dim
+        self.num_heads = num_heads
+        self.mlp_dim = mlp_dim
+        self.attention_downsample_rate = attention_downsample_rate
+        self.compute_dtype = dtype
+        self.shared_keys = shared_keys
         self.layers = nn.ModuleList(
             TwoWayAttentionBlock(embedding_dim, num_heads, mlp_dim,
                                  attention_downsample_rate,
@@ -76,11 +104,53 @@ class TwoWayTransformer(nn.Module):
         self.norm_final_attn = LayerNorm(embedding_dim, eps=1e-5, dtype=dtype)
 
     def forward(self, image_embedding: torch.Tensor, image_pe: torch.Tensor,
-                point_embedding: torch.Tensor
+                point_embedding: torch.Tensor,
+                image_shift: Optional[torch.Tensor] = None,
+                image_shift_map: Optional[torch.Tensor] = None,
+                image_shift_proj: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """image_embedding (B, H, W, D), image_pe (1 or B, H, W, D),
-        point_embedding (B, N, D) -> (queries (B, N, D), keys (B, HW, D))."""
+        point_embedding (B, N, D) -> (queries (B, N, D), keys (B, HW, D)).
+
+        With ``image_shift`` (B, D), ``image_embedding`` holds B / group
+        shared base maps and instance b's keys are ``base[b // group] +
+        image_shift[b]``, a spatially uniform shift; ``image_shift_map``
+        (B, H, W, Cm) and ``image_shift_proj`` (Cm, D) add the low-rank
+        term ``map[b] @ proj``."""
+        dt = self.compute_dtype
+        one_pe = image_pe.shape[0] == 1
+        if image_shift is not None:
+            g, bases = point_embedding.shape[0], image_embedding.shape[0]
+            if g % bases:
+                raise ValueError(
+                    f"image_shift needs the instance count ({g}) divisible "
+                    f"by the base-map count ({bases})")
+            if self.shared_keys and one_pe:
+                smap = (None if image_shift_map is None
+                        else _flatten_image(image_shift_map).to(dt))
+                proj = (None if image_shift_proj is None
+                        else image_shift_proj.to(dt))
+                return twoway_shared(
+                    _flatten_image(image_embedding).to(dt),
+                    point_embedding.to(dt), _flatten_image(image_pe)[0].to(dt),
+                    ft.twoway_params(self), self.depth, self.num_heads,
+                    image_shift.to(dt), smap, proj)
+            image_embedding = (
+                image_embedding.repeat_interleave(g // bases, dim=0)
+                + image_shift[:, None, None, :].to(image_embedding.dtype))
+            if image_shift_map is not None:
+                image_embedding = image_embedding + (
+                    image_shift_map @ image_shift_proj
+                ).to(image_embedding.dtype)
         keys = _flatten_image(image_embedding)
+        if (one_pe and not fa._plain_requested and ft.fused_twoway_ok(
+                keys.device, dt, point_embedding.shape[1], self.embedding_dim,
+                self.num_heads, self.mlp_dim,
+                self.attention_downsample_rate)):
+            return ft.fused_twoway_transformer(
+                keys.to(dt).contiguous(), point_embedding.to(dt).contiguous(),
+                _flatten_image(image_pe)[0].to(dt).contiguous(),
+                ft.twoway_params(self), self.depth, self.num_heads)
         image_pe = _flatten_image(image_pe.expand(image_embedding.shape))
         queries = point_embedding
         for layer in self.layers:

@@ -26,9 +26,10 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 SOURCES = ("relpos_global.cu", "relpos_window.cu", "relpos_global_bwd.cu",
            "relpos_window_bwd.cu", "relpos_packed.cu",
-           "relpos_packed_variants.cu")
+           "relpos_packed_variants.cu", "fused_twoway.cu")
 HEADERS = ("relpos_common.cuh", "relpos_mma.cuh", "relpos_bwd.cuh",
-           "relpos_packed.cuh")
+           "relpos_packed.cuh", "fused_twoway_fp32.cuh",
+           "fused_twoway_tc.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
@@ -91,6 +92,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, i,
                        ctypes.POINTER(ctypes.c_longlong), p]
         fn.restype = i
+    # keys queries key_pe params q_out k_out scratch; g s n d heads mlp depth
+    # downsample bf16 stream
+    lib.la_fused_twoway.argtypes = [p] * 7 + [i] * 9 + [p]
+    lib.la_fused_twoway.restype = i
     lib.la_error_string.argtypes = [i]
     lib.la_error_string.restype = ctypes.c_char_p
     return lib

@@ -63,7 +63,9 @@ LAUNCHES: Dict[str, int] = {"relpos_global": 0, "relpos_window": 0,
                             "relpos_packed_window": 0,
                             # the microbench's variants of the packed kernel
                             "relpos_packed_onehot": 0,
-                            "relpos_packed_bf16exp": 0}
+                            "relpos_packed_bf16exp": 0,
+                            # the whole two-way transformer (ops/fused_twoway)
+                            "fused_twoway": 0}
 
 # head width of the token-major (lanes) kernels; other widths go through
 # flash_attention_relpos_packed

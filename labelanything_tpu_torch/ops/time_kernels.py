@@ -1,6 +1,8 @@
-"""Device time of the forward rel-pos attention kernels at the serving
-shapes (ViT-B's lanes kernels, ViT-H's packed kernels), for comparing two
-checkouts on one card.
+"""Device time of the forward kernels at their main paths' shapes (ViT-B's
+lanes kernels, ViT-H's packed kernels, and the fused TwoWayTransformer at the
+episode-decode path's two call sites: 96 prompt-encoder instances and 16
+mask-decoder instances of 900 image tokens against 6 tokens, bf16), for
+comparing two checkouts on one card.
 
     python labelanything_tpu_torch/ops/time_kernels.py [--root DIR] [--label X]
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import sys
 
@@ -29,6 +32,76 @@ SHAPES = {"relpos_global": (1, (64, 64), 12, 64),
           "relpos_window": (25, (14, 14), 12, 64),
           "relpos_packed_global": (1, (64, 64), 16, 80),
           "relpos_packed_window": (25, (14, 14), 16, 80)}
+
+
+# fused TwoWayTransformer: instances, image tokens, tokens (width 256)
+# the two call sites of the decode path; then one instance alone, and 96
+# instances of 16 image tokens, where the image side is nearly nothing and
+# the time left is the token side's (self-attention, MLP, small projections)
+TWOWAY_SHAPES = {"prompt_encoder": (96, 900, 6), "mask_decoder": (16, 900, 6),
+                 "one_instance": (1, 900, 6), "token_side": (96, 16, 6)}
+
+
+def device_and_call_ms(call, launches: int, repeats: int):
+    """(device ms per launch: median and least over ``repeats`` runs of
+    ``launches`` back-to-back calls, per-call median over 50 single calls)."""
+    def events(count):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(count):
+            call()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / count
+
+    with torch.no_grad():
+        events(10)
+        device_ms = [events(launches) for _ in range(repeats)]
+        call_ms = [events(1) for _ in range(50)]
+    return (statistics.median(device_ms), min(device_ms),
+            statistics.median(call_ms))
+
+
+def time_fused_twoway(opts) -> None:
+    """The fused TwoWayTransformer: the kernel alone on a packed parameter
+    buffer, the call as the model makes it (the wrapper looks the packed
+    buffer up first) and the module path on the same operands."""
+    from labelanything_tpu_torch.models.transformer import TwoWayTransformer
+    from labelanything_tpu_torch.ops import flash_attention as fa
+    from labelanything_tpu_torch.ops import fused_twoway as ft
+    from labelanything_tpu_torch.utils.weights import init_weights
+
+    tr = TwoWayTransformer(2, 256, 8, 2048, dtype=torch.bfloat16).cuda()
+    init_weights(tr, 0)
+    params = ft.twoway_params(tr)
+    flat = ft.pack_params(params, torch.bfloat16)
+    rng = np.random.default_rng(1)
+    for site, (g, s, n) in TWOWAY_SHAPES.items():
+        keys, queries, pe = (
+            torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .cuda().bfloat16() for shape in ((g, s, 256), (g, n, 256),
+                                             (s, 256)))
+        module_args = (keys.view(g, 1, s, 256), pe.view(1, 1, s, 256),
+                       queries)
+
+        def module_path():
+            with fa.plain_attention():
+                return tr(*module_args)
+
+        rows = {"fused_twoway_kernel": lambda: ft.fused_twoway_packed(
+                    keys, queries, pe, flat, 2, 8, 2048, 2),
+                "fused_twoway": lambda: ft.fused_twoway_transformer(
+                    keys, queries, pe, params, 2, 8),
+                "fused_twoway_module_path": module_path}
+        for name, call in rows.items():
+            median, least, per_call = device_and_call_ms(
+                call, opts.launches, opts.repeats)
+            print(json.dumps(dict(
+                label=opts.label, kernel=name, site=site, instances=g,
+                image_tokens=s, tokens=n, device_ms_per_launch=median,
+                device_ms_min=least, call_ms_median=per_call,
+                card=torch.cuda.get_device_name(0))))
 
 
 def main() -> None:
@@ -60,26 +133,15 @@ def main() -> None:
         def call():
             return fns.get(name, packed)(qkv, r, dh ** -0.5, (kh, kw), heads)
 
-        def events(count):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(count):
-                call()
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / count
-
-        with torch.no_grad():
-            events(10)
-            device_ms = [events(opts.launches) for _ in range(opts.repeats)]
-            call_ms = [events(1) for _ in range(50)]
+        median, least, per_call = device_and_call_ms(call, opts.launches,
+                                                     opts.repeats)
         print(json.dumps(dict(
             label=opts.label, kernel=name, batch=b, grid=[kh, kw],
-            device_ms_per_launch=statistics.median(device_ms),
-            device_ms_min=min(device_ms),
-            call_ms_median=statistics.median(call_ms),
-            card=torch.cuda.get_device_name(0))))
+            device_ms_per_launch=median, device_ms_min=least,
+            call_ms_median=per_call, card=torch.cuda.get_device_name(0))))
+    if os.path.exists(os.path.join(
+            opts.root, "labelanything_tpu_torch/ops/fused_twoway.py")):
+        time_fused_twoway(opts)
 
 
 if __name__ == "__main__":

@@ -273,3 +273,118 @@ def test_microbench_variants_match_plain(cuda, heads, dh):
         # the variants take only key grids whose rows are 64 wide
         mb.run_variant(qkv[:, :, :48 * 48], r[:, :, :48 * 48, :96],
                        dh ** -0.5, (48, 48), heads, "f")
+
+
+# ---- the fused TwoWayTransformer ------------------------------------------
+
+def _twoway_case(g, s, n, dtype, device, mlp=2048, seed=0):
+    from labelanything_tpu_torch.models.transformer import TwoWayTransformer
+    from labelanything_tpu_torch.utils.weights import init_weights
+
+    tr = TwoWayTransformer(2, 256, 8, mlp).to(device)
+    init_weights(tr, seed)
+    rng = np.random.default_rng(seed)
+    keys, queries, pe = (
+        torch.from_numpy(rng.standard_normal(shape, np.float32)).to(device,
+                                                                    dtype)
+        for shape in ((g, s, 256), (g, n, 256), (s, 256)))
+    return tr, keys, queries, pe
+
+
+TWOWAY_CASES = [
+    # (instances, image tokens, tokens, MLP width)
+    (96, 900, 6, 2048),    # the prompt encoder's call on the decode path
+    (16, 900, 6, 2048),    # the mask decoder's
+    (5, 900, 3, 2048),     # tokens not a multiple of 8, an odd instance count
+    (3, 37, 8, 2048),      # a ragged last row tile, all 8 token rows
+    (2, 40, 1, 64),        # one token, a narrow MLP, idle warps' states
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,s,n,mlp", TWOWAY_CASES)
+def test_fused_twoway_matches_plain(cuda, g, s, n, mlp, dtype):
+    """K7 against ``twoway_plain`` on the same inputs, both outputs: fp32 to
+    rtol = atol = 1e-4 (sums in another order), bf16 by the 4 x
+    rounding-floor rule."""
+    from labelanything_tpu_torch.ops import fused_twoway as ft
+
+    tr, keys, queries, pe = _twoway_case(g, s, n, dtype, cuda, mlp)
+    params = ft.twoway_params(tr)
+    before = fa.LAUNCHES["fused_twoway"]
+    with torch.no_grad():
+        got = ft.fused_twoway_transformer(keys, queries, pe, params, 2, 8)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["fused_twoway"] == before + 1
+        ref = ft.twoway_plain(keys, queries, pe, params, 2, 8)
+        ref32 = ft.twoway_plain(keys.float(), queries.float(), pe.float(),
+                                params, 2, 8)
+    for out, plain, plain32 in zip(got, ref, ref32):
+        assert out.dtype == dtype and out.shape == plain.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
+        else:
+            ok, diff, floor = _bf16_ok(out, plain, plain32)
+            assert ok, (diff, floor)
+    assert fa.LAUNCHES["fused_twoway"] == before + 1
+
+
+def test_fused_twoway_gradient_and_plain_by_name(cuda):
+    """Kernel forward, recomputed plain backward: the gradients of autograd
+    through the twin; inside ``plain_attention()`` no kernel is launched."""
+    from labelanything_tpu_torch.ops import fused_twoway as ft
+
+    tr, keys, queries, pe = _twoway_case(3, 100, 6, torch.float32, cuda)
+    params = ft.twoway_params(tr)
+    grads = []
+    for fn in (ft.fused_twoway_transformer, ft.twoway_plain):
+        a, b = keys.clone().requires_grad_(), queries.clone().requires_grad_()
+        tr.zero_grad()
+        before = fa.LAUNCHES["fused_twoway"]
+        q, k = fn(a, b, pe, params, 2, 8)
+        ((q ** 2).sum() + (k ** 2).sum()).backward()
+        assert fa.LAUNCHES["fused_twoway"] - before \
+            == int(fn is ft.fused_twoway_transformer)
+        grads.append([a.grad, b.grad] + [p.grad.clone() for p in params])
+    # the two backwards are the same code and differ only through the
+    # forward's outputs (the kernel's sums run in another order): a tensor's
+    # error is held to 1e-3 of its largest gradient. The key projections'
+    # biases have a gradient of zero in exact arithmetic: a tensor under 1e-6
+    # of the largest gradient of all holds rounding only and must stay there
+    floor = 1e-6 * max(ref.abs().max().item() for ref in grads[1])
+    for got, ref in zip(*grads):
+        scale = ref.abs().max().item()
+        if scale < floor:
+            assert got.abs().max().item() < floor
+        else:
+            assert (got - ref).abs().max().item() <= 1e-3 * scale
+    before = fa.LAUNCHES["fused_twoway"]
+    with fa.plain_attention(), torch.no_grad():
+        ft.fused_twoway_transformer(keys, queries, pe, params, 2, 8)
+    assert fa.LAUNCHES["fused_twoway"] == before
+
+
+def test_fused_twoway_rejects_bad_input(cuda):
+    """Strided operands, a width or token count the kernel is not compiled
+    for, or fp16 raise on the card; nothing reaches the twin."""
+    from labelanything_tpu_torch.models.transformer import TwoWayTransformer
+    from labelanything_tpu_torch.ops import fused_twoway as ft
+
+    tr, keys, queries, pe = _twoway_case(2, 64, 6, torch.bfloat16, cuda)
+    params = ft.twoway_params(tr)
+    before = fa.LAUNCHES["fused_twoway"]
+    wide = torch.cat([keys, keys], dim=-1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ft.fused_twoway_transformer(wide[..., :256], queries, pe, params, 2, 8)
+    with pytest.raises(ValueError, match="not compiled"):
+        ft.fused_twoway_transformer(keys, torch.cat([queries, queries], 1),
+                                    pe, params, 2, 8)
+    with pytest.raises(ValueError, match="not compiled"):
+        ft.fused_twoway_transformer(keys.half(), queries.half(), pe.half(),
+                                    params, 2, 8)
+    small = TwoWayTransformer(2, 128, 8, 2048).to(cuda)
+    with pytest.raises(ValueError, match="not compiled"):
+        ft.fused_twoway_transformer(
+            keys[..., :128].contiguous(), queries[..., :128].contiguous(),
+            pe[..., :128].contiguous(), ft.twoway_params(small), 2, 8)
+    assert fa.LAUNCHES["fused_twoway"] == before

@@ -125,9 +125,20 @@ def test_relpos_plain_backward_matches_jax(kind, b, grid_hw, heads):
                                    atol=2e-4)
 
 
+@pytest.fixture
+def one_thread():
+    """``gradcheck`` is thousands of tiny ops: with torch's default thread
+    count they spend their time contending with the other test workers'
+    threads (minutes instead of seconds), so it runs on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("kernel,grid_hw", [("relpos_global", (3, 4)),
                                             ("relpos_window", (2, 3))])
-def test_relpos_autograd_function(kernel, grid_hw):
+def test_relpos_autograd_function(kernel, grid_hw, one_thread):
     """``RelposAttention`` on the CPU route: ``gradcheck`` in fp64, and in
     fp32 the same gradients as autograd of the plain forward (1e-5: one
     takes the explicit formulas, the other PyTorch's)."""
@@ -171,7 +182,7 @@ def test_relpos_cuda_route_never_falls_back():
         assert tfa._plain_requested
     assert not tfa._plain_requested
     assert sorted(tfa.LAUNCHES) == [
-        "relpos_global", "relpos_global_bwd", "relpos_packed_bf16exp",
+        "fused_twoway", "relpos_global", "relpos_global_bwd", "relpos_packed_bf16exp",
         "relpos_packed_global", "relpos_packed_onehot",
         "relpos_packed_window", "relpos_window", "relpos_window_bwd"]
 
@@ -205,6 +216,8 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.data.synthetic",
                "labelanything_tpu_torch.models.registry",
                "labelanything_tpu_torch.ops.flash_attention",
+               "labelanything_tpu_torch.ops.fused_twoway",
+               "labelanything_tpu_torch.ops.twoway_shared",
                "labelanything_tpu_torch.ops._build",
                "labelanything_tpu_torch.ops.time_kernels",
                "labelanything_tpu_torch.ops.microbench_softmax_dtype",

@@ -125,7 +125,18 @@ def test_packed_plain_backward_matches_jax(b, grid_hw, heads, dh):
                                    atol=2e-5)
 
 
-def test_packed_autograd_function():
+@pytest.fixture
+def one_thread():
+    """``gradcheck`` is thousands of tiny ops: with torch's default thread
+    count they spend their time contending with the other test workers'
+    threads (minutes instead of seconds), so it runs on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_packed_autograd_function(one_thread):
     """``gradcheck`` in fp64 on a tiny case, and in fp32 the same gradients
     as autograd through the plain forward (1e-5: explicit formulas against
     PyTorch's), with a strided cotangent."""
