@@ -1,6 +1,7 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: ViT-B serving and a
 fine-tune training step, the ViT-H and ViT-L encoders (serving and
-embedding), then episode decode on precomputed embeddings.
+embedding), episode decode on precomputed embeddings, then the affinity
+decoder on SAM embeddings at 1024 px.
 
 Run from the repository root, with no arguments:
 
@@ -34,7 +35,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    decode path's two call sites (96 and 16 instances of 900 image tokens
    against 6 tokens, width 256), both outputs, fp32 and bf16 by the same
    rules, with a gradient through its autograd function against autograd
-   through the twin; kernel, twin and the module path are timed;
+   through the twin; kernel, twin and the module path are timed. The plain
+   flash kernel is held against ``flash_attention_plain`` at the affinity
+   decoder's call (6 x 8 heads, 4096 queries against 8192 keys, 32 wide),
+   at a ragged 1152 tokens and at head widths 64, 128 and 256, fp32 and
+   bf16 by the same rules, its strided views against contiguous tensors
+   bit for bit, a gradient through its autograd function against autograd
+   through the twin; kernel, twin and ``scaled_dot_product_attention`` are
+   timed and the bound counts the exponentials beside the products;
 3. slice parity: a 1-way 1-shot episode at 1024 px through the full fp32
    slice on the GPU (kernels) and on the CPU (plain twins), logits within
    rtol 1e-3 / atol 5e-4 and argmax agreement > 0.999;
@@ -86,7 +94,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    masks and without: episodes per second, peak memory, logits (16, 6, 480,
    480) finite in the valid region, 2 fused-kernel launches a step; the
    split entry points; a profiler pass; the same steps inside
-   ``plain_attention()`` (the module path) and with the shared-keys form.
+   ``plain_attention()`` (the module path) and with the shared-keys form;
+12. affinity parity (fp32): ``lam_no_vit`` with ``few_type: Affinity`` (the
+   model block of parameters/trainval/other/Affinity/4.2_Affinity_SAM.yaml
+   without its transformer_feature_size: 1024 px, 768-wide SAM embeddings,
+   width 512) on 1 episode of 1-way 1-shot, mask prompts, on the card
+   (flash kernel) against the CPU (plain twin), as phase 3; every class of
+   the episode is flagged;
+13. affinity decode (bf16): 2 episodes of 2-way 1-shot a forward, two
+   batches alternating, 1 warm-up and 8 timed forwards: episodes per
+   second, peak memory, logits (2, 3, 1024, 1024) finite in the valid
+   region of flagged classes with the pad fill and with no finite value
+   for a class no example flags, 2 flash launches a forward; a profiler
+   pass; the same forwards inside ``plain_attention()``.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. The models are the repo's LAM
@@ -146,6 +166,22 @@ CONFIG_DECODE = dict(name="lam_no_vit", spatial_convs=3, class_attention=False,
 # then runs 16 x 1 x 6 instances, the mask decoder's 16, each of 30 x 30
 # image tokens against 6 tokens
 DECODE_BATCH, DECODE_CLASSES, DECODE_STEPS = 16, 6, 8
+# the model block of parameters/trainval/other/Affinity/4.2_Affinity_SAM.yaml
+# (the first class_fusion of its grid) without transformer_feature_size,
+# with which the JAX package cannot run (ROADMAP C3); the transformer then
+# works at the embeddings' 64 x 64 grid
+CONFIG_AFFINITY = dict(name="lam_no_vit", few_type="Affinity",
+                       spatial_convs=3, class_attention=True,
+                       example_attention=True, image_embed_dim=768,
+                       embed_dim=512, image_size=1024, class_fusion="mul",
+                       transformer_keys_are_images=True,
+                       decoder_attention_downsample_rate=2,
+                       class_encoder={"name": "RandomMatrixEncoder",
+                                      "bank_size": 100, "embed_dim": 512})
+# its val_coco20i_N2K1 at the configuration's validation batch: 2 episodes
+# of 2-way 1-shot (2 support images, 3 classes with the background)
+AFFINITY_BATCH, AFFINITY_SHOTS, AFFINITY_CLASSES, AFFINITY_STEPS = 2, 2, 3, 8
+AFFINITY_LAUNCHES = {"flash": 2}   # a forward: the transformer's 2 blocks
 DECODE_LAUNCHES = {"fused_twoway": 2}   # a forward: both transformers
 TWOWAY = dict(name="fused_twoway", s=900, n=6, d=256, heads=8, mlp=2048,
               depth=2, inner=128,
@@ -182,6 +218,10 @@ BF16_GRAD_COSINE = 0.85
 # published peaks of the H100 SXM: dense bf16 tensor-core rate, memory rate
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# exponentials an SM starts a clock on its special-function units (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0); the card's SM count and maximum SM clock are read in the run
+EXP_PER_CLOCK_SM = 16
 _SRC = "labelanything_tpu_torch/csrc/"
 _JAX = "labelanything_tpu/ops/flash_attention.py:"
 KERNELS = [
@@ -213,6 +253,17 @@ VARIANT_KERNELS = [
          source=_SRC + "relpos_packed_variants.cu",
          replaces="scripts/microbench_softmax_dtype.py:113", variant=mode)
     for mode, kernel in microbench.VARIANTS.items() if mode != "e"]
+# the plain flash kernel (K6) at the affinity decoder's call on phase 13's
+# traffic: 2 episodes x 3 classes, 8 heads, 4096 query tokens against 2
+# support images' 8192, 32 wide; then a ragged length (the JAX test's 1152)
+# and the route's other head widths on a small batch, not timed
+FLASH = dict(name="flash", b=6, heads=8, nq=4096, nk=8192, dh=32,
+             source=_SRC + "flash_attention.cu",
+             replaces="labelanything_tpu/ops/flash_attention.py:367")
+FLASH_OTHER = [dict(FLASH, b=1, heads=2, nq=1152, nk=1152),
+               dict(FLASH, b=2, heads=2, nq=1024, nk=2048, dh=64),
+               dict(FLASH, b=1, heads=2, nq=1152, nk=1024, dh=128),
+               dict(FLASH, b=1, heads=2, nq=1024, nk=1152, dh=256)]
 # The global kernels' general bias path: a key grid whose rows are not 64
 # wide (a 768-px image) at the training step's batch. Held against the
 # plain twins, not timed; the main path at 1024 px does not take it.
@@ -595,7 +646,148 @@ def phase_kernels() -> dict:
               f"ms by {s['bound_by']}")
     results.update(variants)
     results.update(check_twoway())
+    results.update(check_flash_all())
     return results
+
+
+def card_exp_rate() -> float:
+    """Exponentials a second the card can start: EXP_PER_CLOCK_SM on each
+    SM at the maximum SM clock nvidia-smi reports."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EXP_PER_CLOCK_SM * sms * mhz * 1e6
+
+
+def flash_bound(k: dict, exp_rate: float) -> dict:
+    """Least time the card could take for one flash call in bf16: the
+    larger of its operations' time and bytes / memory rate. Operations:
+    the q.k^T and P.v products (4 Q K dh flops a head) on the tensor cores
+    and one exponential a score on the special-function units; whichever
+    takes longer bounds them. Bytes: q, k, v read and out written once."""
+    pairs = k["b"] * k["heads"] * k["nq"] * k["nk"]
+    flops = 4 * pairs * k["dh"]
+    nbytes = 2 * k["b"] * k["heads"] * (2 * k["nq"] + 2 * k["nk"]) * k["dh"]
+    t_mma, t_exp = flops / PEAK_FLOPS, pairs / exp_rate
+    t_ops, t_bytes = max(t_mma, t_exp), nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                mma_bound_ms=1e3 * t_mma, exp_bound_ms=1e3 * t_exp,
+                bytes_bound_ms=1e3 * t_bytes, flops=flops, exps=pairs,
+                bytes=nbytes)
+
+
+def flash_inputs(k: dict) -> tuple:
+    """fp32 q (B, H, Q, dh) and k, v (B, H, K, dh) as the affinity
+    attention hands them over: head-split views of token-major
+    projections, not copied."""
+    rng = np.random.default_rng(1)
+    b, heads, dh = k["b"], k["heads"], k["dh"]
+    return tuple(
+        torch.from_numpy(rng.standard_normal((b, n, heads * dh), np.float32))
+        .cuda().view(b, n, heads, dh).transpose(1, 2)
+        for n in (k["nq"], k["nk"], k["nk"]))
+
+
+def library_flash(q, k, v, scale):
+    """The same function through one library call."""
+    return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+
+@torch.no_grad()
+def check_flash(k: dict, timed: bool = True) -> dict:
+    """K6 against its twin: fp32 (rtol = atol = 1e-4), bf16 by the 4x rule;
+    the strided views against contiguous tensors, bit for bit in bf16 (the
+    output then lies as q does); timed: kernel, twin and the library call
+    in bf16, kernel and twin in fp32."""
+    q, kk, v = flash_inputs(k)
+    scale = k["dh"] ** -0.5
+    before = fa.LAUNCHES["flash"]
+    out = fa.flash_attention(q, kk, v, scale)
+    ref = fa.flash_attention_plain(q, kk, v, scale)
+    torch.cuda.synchronize()
+    check(fa.LAUNCHES["flash"] == before + 1, "flash: one launch a call")
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    err32 = (out - ref).abs().max().item()
+    del out, ref
+    qb, kb, vb = (x.bfloat16() for x in (q, kk, v))
+    out = fa.flash_attention(qb, kb, vb, scale)
+    ref32 = fa.flash_attention_plain(qb.float(), kb.float(), vb.float(), scale)
+    ref = fa.flash_attention_plain(qb, kb, vb, scale).float()
+    err16 = (out.float() - ref).abs().max().item()
+    floor = (ref - ref32).abs().max().item()
+    del ref
+    check(err16 <= 4 * floor + 1e-6,
+          f"flash {k['nq']} x {k['nk']} dh {k['dh']} bf16 error {err16} > 4 x "
+          f"floor {floor}")
+    dense = fa.flash_attention(qb.contiguous(), kb.contiguous(),
+                               vb.contiguous(), scale)
+    check(fa._token_major(qb) and fa._token_major(out)
+          and dense.is_contiguous(), "flash: unexpected layouts")
+    check(torch.equal(out, dense), "flash: the strided views and the "
+          "contiguous tensors give other bits")
+    stats = dict(max_abs_err=err32, max_abs_err_bf16=err16, bf16_floor=floor)
+    if timed:
+        lib_err = (library_flash(qb, kb, vb, scale).float() - ref32
+                   ).abs().max().item()
+        check(lib_err <= 4 * floor + 1e-6,
+              "flash: the library call computes another function")
+        del ref32, out, dense
+        stats.update(
+            ms=median_ms(lambda: fa.flash_attention(qb, kb, vb, scale)),
+            plain_ms=median_ms(lambda: fa.flash_attention_plain(qb, kb, vb,
+                                                                scale)),
+            library_ms=median_ms(lambda: library_flash(qb, kb, vb, scale)),
+            ms_fp32=median_ms(lambda: fa.flash_attention(q, kk, v, scale),
+                              iters=5),
+            plain_ms_fp32=median_ms(
+                lambda: fa.flash_attention_plain(q, kk, v, scale), iters=5))
+    return stats
+
+
+def check_flash_all() -> dict:
+    """K6 at the path's shape (timed, with its bound), at the other shapes,
+    and a gradient through its autograd function (kernel forward, the twin
+    recomputed for the backward) against autograd through the twin."""
+    exp_rate = card_exp_rate()
+    for k in [FLASH] + FLASH_OTHER:
+        stats = check_flash(k, timed=k is FLASH)
+        print(f"kernel flash b {k['b']} heads {k['heads']} {k['nq']} x "
+              f"{k['nk']} dh {k['dh']}: fp32 err {stats['max_abs_err']:.3g}, "
+              f"bf16 err {stats['max_abs_err_bf16']:.3g} (floor "
+              f"{stats['bf16_floor']:.3g}); strided views == contiguous")
+        if k is FLASH:
+            s = dict(stats, **flash_bound(k, exp_rate))
+    print(f"kernel flash at the affinity call: bf16 {s['ms']:.4f} ms vs plain "
+          f"{s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} ms, bound "
+          f"{s['bound_ms']:.4f} ms by {s['bound_by']} (tensor cores "
+          f"{s['mma_bound_ms']:.4f} ms, exponentials {s['exp_bound_ms']:.4f} "
+          f"ms at {exp_rate:.4g} a second, bytes {s['bytes_bound_ms']:.4f} "
+          f"ms); fp32 {s['ms_fp32']:.4f} ms vs plain "
+          f"{s['plain_ms_fp32']:.4f} ms")
+    k = FLASH_OTHER[0]
+    q, kk, v = flash_inputs(k)
+    ct = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        q.shape, np.float32)).cuda()
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_plain):
+        leaves = [x.detach().requires_grad_() for x in (q, kk, v)]
+        before = fa.LAUNCHES["flash"]
+        grads.append(torch.autograd.grad(fn(*leaves, k["dh"] ** -0.5),
+                                         leaves, ct))
+        check(fa.LAUNCHES["flash"] - before == int(fn is fa.flash_attention),
+              "flash: launches of the gradient check")
+    torch.cuda.synchronize()
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    s["grad_max_abs_err"] = max((g - x).abs().max().item()
+                                for g, x in zip(*grads))
+    print(f"kernel flash: gradient (kernel forward, plain backward) against "
+          f"autograd of the plain twin: err {s['grad_max_abs_err']:.3g}")
+    return {"flash": s}
 
 
 def twoway_bound(g: int) -> dict:
@@ -1001,7 +1193,7 @@ def profile_steps(run_step, steps: int = 2, unit: str = "step") -> None:
         print(f"profile:   {t / steps:8.3f} ms a {unit}, {n // steps:5d} "
               f"launches  {key[:90]}")
     for t, n, key in sorted(kernels, reverse=True):
-        if "relpos" in key or "twoway" in key:
+        if "relpos" in key or "twoway" in key or "flash" in key:
             print(f"profile:   {t / n:8.4f} ms a launch on the device  "
                   f"{key[:90]}")
 
@@ -1347,6 +1539,112 @@ def phase_decode() -> dict:
     return total
 
 
+def affinity_batches(batch_size: int, shots: int, classes: int,
+                     seeds) -> list:
+    """Episodes at 1024 px on SAM ViT-B embeddings (64 x 64 x 768) with
+    mask prompts only, the configuration's validation prompts."""
+    return [random_batch(batch_size=batch_size, num_examples=shots,
+                         num_classes=classes, image_size=1024, embed_dim=768,
+                         seed=seed, include_points=False, include_boxes=False)
+            for seed in seeds]
+
+
+def phase_affinity_parity() -> None:
+    """The fp32 affinity slice on the card (K6) against the CPU (the twin)
+    on 1 episode of 1-way 1-shot, whose classes are all flagged (a class
+    with no flagged example has no finite logit, ROADMAP C4)."""
+    batch = affinity_batches(1, 1, 2, (0,))[0]
+    check(bool(batch[BatchKeys.FLAG_EXAMPLES].any(axis=1).all()),
+          "affinity parity: the episode flags every class")
+    logits = {}
+    for device in ("cuda", "cpu"):
+        la = LabelAnything(dict(CONFIG_AFFINITY, dtype="float32"), device,
+                           SEED)
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        out = la.predict(batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        logits[device] = out.float().cpu().numpy()
+        expect_launches(dict(fa.LAUNCHES),
+                        AFFINITY_LAUNCHES if device == "cuda" else {},
+                        f"affinity parity ({device})")
+        print(f"affinity parity: fp32 forward on {device} "
+              f"{time.perf_counter() - t0:.2f} s")
+        del la
+    compare_logits(logits["cuda"], logits["cpu"], "affinity parity")
+
+
+def check_affinity_logits(out: torch.Tensor, batch: dict, what: str) -> None:
+    """Logits (B, C, S, S) in bf16: a flagged class finite in the valid
+    region with the pad fill (0 background, -inf other classes); a class no
+    example flags with no finite value."""
+    s = CONFIG_AFFINITY["image_size"]
+    valid_w = int(s * 0.9)
+    flagged = batch[BatchKeys.FLAG_EXAMPLES].bool().any(dim=1)
+    check(tuple(out.shape) == (AFFINITY_BATCH, AFFINITY_CLASSES, s, s)
+          and out.dtype == torch.bfloat16, f"{what}: logits {out.shape}")
+    check(bool(torch.isfinite(out[flagged][..., :valid_w]).all()),
+          f"{what}: non-finite logits in the valid region of a flagged class")
+    check(bool((out[:, 0, :, valid_w:] == 0).all())
+          and bool(torch.isneginf(out[:, 1:][flagged[:, 1:]][..., valid_w:])
+                   .all()), f"{what}: pad fill")
+    check(not bool(torch.isfinite(out[~flagged]).any()),
+          f"{what}: finite logits for a class no example flags")
+
+
+def phase_affinity() -> dict:
+    """Serving traffic of the affinity decoder: 2 episodes of 2-way 1-shot
+    a forward (val_coco20i_N2K1 at the configuration's validation batch),
+    two batches alternating, 1 warm-up and AFFINITY_STEPS timed forwards;
+    a profiler pass; the same forwards inside ``plain_attention()``."""
+    la = LabelAnything(dict(CONFIG_AFFINITY, dtype="bf16"), seed=SEED)
+    check(next(la.model.parameters()).is_cuda, "the affinity model is not on "
+          "the card")
+    batches = [la.to_device(b) for b in affinity_batches(
+        AFFINITY_BATCH, AFFINITY_SHOTS, AFFINITY_CLASSES, (2, 3))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode_steps(la, batches, 1)
+    fa.reset_launches()
+    times, out = decode_steps(la, batches, AFFINITY_STEPS)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(launches, {k: v * AFFINITY_STEPS
+                               for k, v in AFFINITY_LAUNCHES.items()},
+                    "affinity decode")
+    last = batches[(AFFINITY_STEPS - 1) % 2]
+    check_affinity_logits(out, last, "affinity decode")
+    ms = statistics.median(times) * 1e3
+    with fa.plain_attention():
+        decode_steps(la, batches, 1)
+        before = dict(fa.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        plain_times, plain_out = decode_steps(la, batches, AFFINITY_STEPS)
+        plain_peak = torch.cuda.max_memory_allocated()
+        check(dict(fa.LAUNCHES) == before,
+              "a kernel was launched inside plain_attention()")
+    check_affinity_logits(plain_out, last, "affinity decode, plain")
+    flagged = last[BatchKeys.FLAG_EXAMPLES].bool().any(dim=1)
+    valid_w = int(CONFIG_AFFINITY["image_size"] * 0.9)
+    region = lambda x: x[flagged][..., :valid_w].float()
+    diff = (region(plain_out) - region(out)).abs().max().item()
+    plain_ms = statistics.median(plain_times) * 1e3
+    print(f"affinity decode: {AFFINITY_BATCH} episodes of "
+          f"{AFFINITY_CLASSES - 1}-way 1-shot a forward, bf16, forwards "
+          f"{[round(t * 1e3, 2) for t in times]} ms, median {ms:.2f} ms = "
+          f"{AFFINITY_BATCH / ms * 1e3:.2f} episodes/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches a forward "
+          f"{ {k: v // AFFINITY_STEPS for k, v in nonzero(launches).items()} }"
+          f"; inside plain_attention() median {plain_ms:.2f} ms = "
+          f"{AFFINITY_BATCH / plain_ms * 1e3:.2f} episodes/s, peak "
+          f"{plain_peak / 2**30:.2f} GiB, max |logit difference| to the "
+          f"kernel path {diff:.3g} (logit scale "
+          f"{region(out).abs().max().item():.3g})")
+    profile_steps(lambda: la(batches[0]), 2, unit="forward")
+    return launches
+
+
 def main() -> None:
     card = phase_card()
     kind = torch.cuda.get_device_name(0)
@@ -1366,8 +1664,10 @@ def main() -> None:
     paths.append(phase_embed(build_vit_l, "vit_l", ENCODER_LAUNCHES_L))
     phase_decode_parity()
     paths.append(phase_decode())
+    phase_affinity_parity()
+    paths.append(phase_affinity())
     summary = []
-    for k in KERNELS + PACKED_KERNELS + VARIANT_KERNELS + [TWOWAY]:
+    for k in KERNELS + PACKED_KERNELS + VARIANT_KERNELS + [TWOWAY, FLASH]:
         stats = dict(kernel_stats[k["name"]])
         # the variants' main path is the microbench, counted in phase 2
         launches = stats.pop("launches", None)

@@ -4,8 +4,9 @@ reference: label_anything/models/build_lam.py:96-300).
 Builders return modules whose parameters are fp32 and whose compute dtype is
 ``dtype``; weights come from :mod:`..utils.weights` (a seeded init or JAX
 parameters). Ported: a SAM ViT-B, ViT-L or ViT-H encoder, or none (precomputed
-embeddings: ``build_lam_no_vit``), with the prototype decoder and the
-two-way fusion transformer.
+embeddings: ``build_lam_no_vit``), with the two-way fusion transformer and
+the prototype decoder (``few_type`` "Prototype") or the affinity decoder
+("Affinity").
 """
 
 from __future__ import annotations
@@ -14,12 +15,13 @@ from typing import Optional, Union
 
 import torch
 
+from .affinity_decoder import AffinityDecoder
 from .build_encoder import build_vit_b, build_vit_h, build_vit_l
 from .lam import Lam, Neck
 from .mask_decoder import MaskDecoderLam
 from .prompt_encoder import (IdentityClassEncoder, PromptImageEncoder,
                              RandomMatrixEncoder)
-from .transformer import TwoWayTransformer
+from .transformer import AffinityTransformer, TwoWayTransformer
 
 SAM_EMBED_DIM = 256
 
@@ -34,11 +36,52 @@ def norm_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return _DTYPES[dtype.lower()]
 
 
-def _two_way(embed_dim: int, dtype: torch.dtype,
-             shared_keys: bool = False) -> TwoWayTransformer:
+def _two_way(embed_dim: int, dtype: torch.dtype, shared_keys: bool = False,
+             downsample_rate: int = 2) -> TwoWayTransformer:
     return TwoWayTransformer(depth=2, embedding_dim=embed_dim, num_heads=8,
-                             mlp_dim=2048, attention_downsample_rate=2,
+                             mlp_dim=2048,
+                             attention_downsample_rate=downsample_rate,
                              dtype=dtype, shared_keys=shared_keys)
+
+
+def build_mask_decoder(embed_dim: int, decoder_attention_downsample_rate: int,
+                       few_type: str = "Prototype",
+                       spatial_convs: Optional[int] = None,
+                       classification_layer_downsample_rate: int = 8,
+                       transformer_feature_size: Optional[int] = None,
+                       class_fusion: str = "sum",
+                       transformer_keys_are_images: bool = True,
+                       dtype: torch.dtype = torch.float32):
+    """The decoder of ``few_type`` (reference: build_lam.py:238-298)."""
+    if few_type == "Prototype":
+        return MaskDecoderLam(
+            transformer_dim=embed_dim,
+            transformer=_two_way(
+                embed_dim, dtype,
+                downsample_rate=decoder_attention_downsample_rate),
+            spatial_convs=spatial_convs,
+            classification_layer_downsample_rate=(
+                classification_layer_downsample_rate),
+            dtype=dtype)
+    if few_type == "Affinity":
+        return AffinityDecoder(
+            transformer_dim=embed_dim,
+            transformer=AffinityTransformer(
+                depth=2, embedding_dim=embed_dim, num_heads=8, mlp_dim=2048,
+                attention_downsample_rate=decoder_attention_downsample_rate,
+                dtype=dtype),
+            spatial_convs=spatial_convs,
+            classification_layer_downsample_rate=(
+                classification_layer_downsample_rate),
+            transformer_feature_size=transformer_feature_size,
+            class_fusion=class_fusion,
+            transformer_keys_are_images=transformer_keys_are_images,
+            dtype=dtype)
+    if few_type == "PrototypeAffinity":
+        raise NotImplementedError("few_type 'PrototypeAffinity' (the "
+                                  "affinity decoder's prototype_merge) is not "
+                                  "ported (ROADMAP A13)")
+    raise NotImplementedError(f"few_type {few_type!r} not implemented")
 
 
 def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
@@ -55,16 +98,27 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
                dtype: Union[str, torch.dtype] = torch.float32,
                remat_encoder: Union[bool, str, None] = False,
                structured_fusion: bool = True, mask_factor: bool = True,
-               shared_keys: bool = False) -> Lam:
+               shared_keys: bool = False, few_type: str = "Prototype",
+               decoder_attention_downsample_rate: int = 2,
+               class_fusion: str = "sum",
+               transformer_keys_are_images: bool = True,
+               transformer_feature_size: Optional[int] = None,
+               apply_masks: bool = False) -> Lam:
     """Architecture factory (reference: build_lam.py:96-235).
-    ``remat_encoder`` is the image encoder's ``remat``. The last three
-    choose among exact forms of the prompt encoder's fusion (the JAX
-    package's environment switches): ``structured_fusion`` and
-    ``mask_factor`` are ``PromptImageEncoder``'s, ``shared_keys`` its
-    transformer's (``ops/twoway_shared.py`` instead of expanded keys)."""
+    ``remat_encoder`` is the image encoder's ``remat``. ``structured_fusion``,
+    ``mask_factor`` and ``shared_keys`` choose among exact forms of the
+    prompt encoder's fusion (the JAX package's environment switches):
+    the first two are ``PromptImageEncoder``'s, the last its transformer's
+    (``ops/twoway_shared.py`` instead of expanded keys). ``few_type`` and
+    the four arguments after it go to :func:`build_mask_decoder`."""
     if fusion_transformer != "TwoWayTransformer":
         raise NotImplementedError(f"fusion transformer {fusion_transformer!r} "
                                   f"is not ported")
+    if apply_masks:
+        raise NotImplementedError(
+            "apply_masks=True is not ported: the port's attention takes no "
+            "masks, as the reference's masking is a no-op (see "
+            "models.common.Attention)")
     dtype = norm_dtype(dtype)
     grid = image_size // vit_patch_size
 
@@ -95,12 +149,14 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
         class_attention=class_attention, example_attention=example_attention,
         dtype=dtype, structured_fusion=structured_fusion,
         mask_factor=mask_factor)
-    mask_decoder = MaskDecoderLam(
-        transformer_dim=embed_dim,
-        transformer=_two_way(embed_dim, dtype),
+    mask_decoder = build_mask_decoder(
+        embed_dim, decoder_attention_downsample_rate, few_type=few_type,
         spatial_convs=spatial_convs,
-        classification_layer_downsample_rate=classification_layer_downsample_rate,
-        dtype=dtype)
+        classification_layer_downsample_rate=(
+            classification_layer_downsample_rate),
+        transformer_feature_size=transformer_feature_size,
+        class_fusion=class_fusion,
+        transformer_keys_are_images=transformer_keys_are_images, dtype=dtype)
     return Lam(prompt_encoder=prompt_encoder, mask_decoder=mask_decoder,
                image_encoder=vit, neck=neck, image_size=image_size,
                custom_preprocess=custom_preprocess)

@@ -17,6 +17,7 @@ Conventions of the port:
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -152,7 +153,8 @@ class Attention(nn.Module):
 
 class AttentionMLPBlock(nn.Module):
     """Post-norm attention + MLP block (reference: models/common.py:151-184);
-    the reference applies one LayerNorm instance twice."""
+    the reference applies one LayerNorm instance twice. Self-attention by
+    default; the affinity transformer hands it keys and values."""
 
     def __init__(self, embed_dim: int, downsample_rate: int, mlp_dim: int,
                  num_heads: int, act=gelu, dtype: torch.dtype = torch.float32):
@@ -161,6 +163,9 @@ class AttentionMLPBlock(nn.Module):
         self.attn = Attention(embed_dim, num_heads, downsample_rate, dtype=dtype)
         self.mlp = MLPBlock(embed_dim, mlp_dim, act=act, dtype=dtype)
 
-    def forward(self, q: torch.Tensor) -> torch.Tensor:
-        attn_out = self.norm(self.attn(q, q, q) + q)
+    def forward(self, q: torch.Tensor, k: Optional[torch.Tensor] = None,
+                v: Optional[torch.Tensor] = None) -> torch.Tensor:
+        k = q if k is None else k
+        v = q if v is None else v
+        attn_out = self.norm(self.attn(q, k, v) + q)
         return self.norm(self.mlp(attn_out) + attn_out)

@@ -18,6 +18,7 @@ from torch import nn
 from ..ops.image_norm import maybe_normalize_images
 from ..ops.resize import resize_bilinear
 from ..typing import BatchKeys, ResultDict
+from .affinity_decoder import AffinityDecoder
 from .common import Conv2d, LayerNorm2d
 
 Batch = Dict[str, Any]
@@ -99,9 +100,17 @@ class Lam(nn.Module):
                                    flag_examples, generator)
 
     def _decode(self, query_embeddings: torch.Tensor, pe_result: dict,
-                dims: torch.Tensor) -> torch.Tensor:
-        seg = self.mask_decoder(query_embeddings,
-                                self.prompt_encoder.get_dense_pe(), pe_result)
+                dims: torch.Tensor,
+                support_embeddings: Optional[torch.Tensor] = None,
+                flag_examples: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The affinity decoder also takes the support images' features and
+        the example flags (JAX ``lam.py:183-190``)."""
+        pe = self.prompt_encoder.get_dense_pe()
+        if isinstance(self.mask_decoder, AffinityDecoder):
+            seg = self.mask_decoder(query_embeddings, support_embeddings, pe,
+                                    pe_result, flag_examples)
+        else:
+            seg = self.mask_decoder(query_embeddings, pe, pe_result)
         return self.postprocess_masks_fixed(seg, dims)
 
     def forward(self, batch: Batch,
@@ -111,7 +120,8 @@ class Lam(nn.Module):
         class c takes row c."""
         embeddings = self.prepare_embeddings(batch)
         pe_result = self._encode_prompts(embeddings[:, 1:], batch, generator)
-        seg = self._decode(embeddings[:, 0], pe_result, batch[BatchKeys.DIMS])
+        seg = self._decode(embeddings[:, 0], pe_result, batch[BatchKeys.DIMS],
+                           embeddings[:, 1:], batch[BatchKeys.FLAG_EXAMPLES])
         if BatchKeys.FLAG_GTS in batch:
             seg = torch.where(batch[BatchKeys.FLAG_GTS][:, :, None, None], seg,
                               float("-inf"))
@@ -127,7 +137,16 @@ class Lam(nn.Module):
 
     def predict(self, batch: Batch, class_embeddings: dict) -> torch.Tensor:
         """Logits of the query (index 0) against cached class embeddings
-        (reference: lam.py:362-382)."""
+        (reference: lam.py:362-382). Not for the affinity decoder, which
+        decodes against the support images themselves: call the model on
+        the whole episode."""
+        if isinstance(self.mask_decoder, AffinityDecoder):
+            raise NotImplementedError(
+                "predict against cached class embeddings is not defined for "
+                "the affinity decoder, which needs the support images' "
+                "features (the JAX Lam.predict hands it support_embeddings="
+                "None, which it cannot take); call the model on the whole "
+                "episode")
         return self._decode(self.prepare_embeddings(batch)[:, 0],
                             class_embeddings, batch[BatchKeys.DIMS])
 

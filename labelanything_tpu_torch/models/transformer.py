@@ -1,4 +1,4 @@
-"""Two-way fusion transformer (counterpart of
+"""Fusion transformers (counterpart of
 ``labelanything_tpu/models/transformer.py``; reference:
 label_anything/models/transformer.py). Image tensors arrive channels-last
 (B, H, W, D) and are flattened to (B, HW, D); token tensors are (B, N, D).
@@ -17,7 +17,12 @@ label_anything/models/transformer.py). Image tensors arrive channels-last
   image side once per base map.
 
 The JAX package's block-diagonal lane layouts are the TPU's and are not
-ported."""
+ported.
+
+``AffinityTransformer`` (the affinity decoder's) attends from the query
+image's map to every support image's map, with the class-conditioned support
+masks as values; its attention meets ``ops.attention``'s rule for the flash
+kernel at the SAM grid of 64 x 64."""
 
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from torch import nn
 from ..ops import flash_attention as fa
 from ..ops import fused_twoway as ft
 from ..ops.twoway_shared import twoway_shared
-from .common import Attention, LayerNorm, MLPBlock
+from .common import Attention, AttentionMLPBlock, LayerNorm, MLPBlock
 
 
 def _flatten_image(x: torch.Tensor) -> torch.Tensor:
@@ -160,3 +165,53 @@ class TwoWayTransformer(nn.Module):
         queries = self.norm_final_attn(
             queries + self.final_attn_token_to_image(q, k, keys))
         return queries, keys
+
+
+class AffinityBlock(nn.Module):
+    """DCAMA-style mask-valued attention block (reference:
+    transformer.py:332-364)."""
+
+    def __init__(self, embedding_dim: int, num_heads: int, mlp_dim: int,
+                 attention_downsample_rate: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attention = AttentionMLPBlock(
+            embedding_dim, attention_downsample_rate, mlp_dim, num_heads,
+            act=F.relu, dtype=dtype)
+
+    def forward(self, image_features: torch.Tensor,
+                support_features: torch.Tensor, support_masks: torch.Tensor,
+                image_pe: torch.Tensor) -> torch.Tensor:
+        """image_features (B C, HW, D), support_features and support_masks
+        (B C, M HW, D), image_pe (1, h, w, D) -> (B C, HW, D)."""
+        hw = image_features.shape[1]
+        pe = _flatten_image(image_pe)
+        shots = support_features.shape[1] // hw
+        queries = image_features + pe
+        keys = support_features + pe.repeat(1, shots, 1)
+        return self.attention(queries, keys, support_masks) + image_features
+
+
+class AffinityTransformer(nn.Module):
+    """Stack of AffinityBlocks (reference: transformer.py:362-403). The JAX
+    module also builds a dense (B C, heads, HW, M HW) key mask from the
+    example flags, which its attention ignores unless ``apply_masks`` (the
+    reference's masks are a no-op, see ``common.Attention``); the port
+    builds none: at the SAM grid it would hold 1.6 G elements."""
+
+    def __init__(self, depth: int, embedding_dim: int, num_heads: int,
+                 mlp_dim: int, attention_downsample_rate: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            AffinityBlock(embedding_dim, num_heads, mlp_dim,
+                          attention_downsample_rate, dtype=dtype)
+            for _ in range(depth))
+
+    def forward(self, image_embedding: torch.Tensor,
+                support_features: torch.Tensor, support_masks: torch.Tensor,
+                image_pe: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            image_embedding = layer(image_embedding, support_features,
+                                    support_masks, image_pe)
+        return image_embedding

@@ -26,7 +26,8 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 SOURCES = ("relpos_global.cu", "relpos_window.cu", "relpos_global_bwd.cu",
            "relpos_window_bwd.cu", "relpos_packed.cu",
-           "relpos_packed_variants.cu", "fused_twoway.cu")
+           "relpos_packed_variants.cu", "fused_twoway.cu",
+           "flash_attention.cu")
 HEADERS = ("relpos_common.cuh", "relpos_mma.cuh", "relpos_bwd.cuh",
            "relpos_packed.cuh", "fused_twoway_fp32.cuh",
            "fused_twoway_tc.cuh")
@@ -96,6 +97,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # downsample bf16 stream
     lib.la_fused_twoway.argtypes = [p] * 7 + [i] * 9 + [p]
     lib.la_fused_twoway.restype = i
+    # q k v out; batch heads nq nk dh scale bf16 strides[12] stream
+    lib.la_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i,
+                                       ctypes.c_float, i,
+                                       ctypes.POINTER(ctypes.c_longlong), p]
+    lib.la_flash_attention.restype = i
     lib.la_error_string.argtypes = [i]
     lib.la_error_string.restype = ctypes.c_char_p
     return lib

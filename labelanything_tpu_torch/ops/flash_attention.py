@@ -1,4 +1,5 @@
-"""Decomposed relative-position attention for the SAM ViT encoder.
+"""Attention kernels: the decomposed relative-position attention of the SAM
+ViT encoder, and plain attention without a bias.
 
 Counterpart of ``labelanything_tpu/ops/flash_attention.py``. Kernels written
 in CUDA C++ for Hopper replace the TPU's Pallas kernels. For heads 64 wide
@@ -38,12 +39,23 @@ callers that hold q, k and v apart:
 * :func:`flash_attention_relpos` - q, k, v (BH, N, dh) apart with ``rel_h``
   and ``rel_w``: the one-head case of the packed function.
 
+And without a bias, for any lengths:
+
+* :func:`flash_attention` - softmax(q . k^T * scale) . v on q (B, H, Q, dh)
+  and k, v (B, H, K, dh), dh 32, 64, 128 or 256: ``csrc/flash_attention.cu``
+  (one block per (batch, head, 64-row query tile), online softmax). The
+  operands may be strided views with a contiguous last axis; the output
+  lies token-major when q does. Its backward recomputes the plain twin
+  under autograd on any device, as the JAX ``_bwd`` recomputes through
+  XLA. ``ops/attention.py`` routes to it.
+
 A CPU tensor goes to the plain PyTorch twins, :func:`relpos_attention_plain`
 (the JAX ``_lanes_xla_ref``), :func:`relpos_packed_plain` (the JAX
-``_packed_xla_ref``) and their backwards; a CUDA tensor launches the kernels
-or raises. :func:`plain_attention` is a context manager for callers that
-want the plain twins on the card by name, to compare against; the package
-itself never enters it.
+``_packed_xla_ref``), :func:`flash_attention_plain` (the JAX ``_xla_ref``)
+and their backwards; a CUDA tensor launches the kernels or raises.
+:func:`plain_attention` is a context manager for callers that want the
+plain twins on the card by name, to compare against; the package itself
+never enters it.
 """
 
 from __future__ import annotations
@@ -65,12 +77,15 @@ LAUNCHES: Dict[str, int] = {"relpos_global": 0, "relpos_window": 0,
                             "relpos_packed_onehot": 0,
                             "relpos_packed_bf16exp": 0,
                             # the whole two-way transformer (ops/fused_twoway)
-                            "fused_twoway": 0}
+                            "fused_twoway": 0,
+                            # plain attention without a bias
+                            "flash": 0}
 
 # head width of the token-major (lanes) kernels; other widths go through
 # flash_attention_relpos_packed
 KERNEL_HEAD_DIM = 64
 PACKED_HEAD_DIMS = (64, 80)  # head widths the packed kernels are compiled for
+FLASH_HEAD_DIMS = (32, 64, 128, 256)  # and the plain flash kernel
 _WINDOW_MAX_N = 256
 _MAX_GRID_YZ = 65535  # CUDA's limit on a launch grid's y and z extents
 _MAX_RR = 256     # kh + kw bound of the kernels' shared-memory r rows
@@ -481,6 +496,107 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          * LOG2E).to(q.dtype)
     return flash_attention_relpos_packed(qkv, r[:, None], scale, grid_hw,
                                          1)[:, 0]
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """softmax(q . k^T * scale) . v on (B, H, N, dh) operands as plain tensor
+    ops (the JAX ``_xla_ref``): scores and softmax in fp32 (fp64 for fp64
+    inputs), the probabilities cast to v's dtype."""
+    ft = _float_type(q)
+    s = torch.matmul(q.to(ft), k.to(ft).transpose(-1, -2)) * scale
+    return torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v)
+
+
+def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """Kernel ``la_flash_attention`` on strided operands: out (B, H, Q, dh),
+    laid out token-major when ``q`` is."""
+    b, heads, nq, dh = q.shape
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device.type != "cuda":
+            raise ValueError(f"the flash kernel needs CUDA tensors, got "
+                             f"{name} on {x.device}")
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}'s last axis must be contiguous")
+        # the bf16 kernel copies rows 16 bytes at a time
+        per16 = 16 // x.element_size()
+        if x.dtype == torch.bfloat16 and (
+                x.data_ptr() % 16 or any(st % per16 for st in x.stride()[:3])):
+            raise ValueError(f"{name}'s rows must be 16-byte aligned, got "
+                             f"strides {x.stride()}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the flash kernel takes fp32 or bf16, got {q.dtype}")
+    if dh not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head width must be one of {FLASH_HEAD_DIMS}, got "
+                         f"{dh}")
+    if max(b, heads) > _MAX_GRID_YZ:
+        raise ValueError(f"at most {_MAX_GRID_YZ} batches and heads a call, "
+                         f"got {b} and {heads}")
+    from . import _build
+
+    lib = _build.load()
+    if _token_major(q):
+        out = torch.empty((b, nq, heads, dh), dtype=q.dtype,
+                          device=q.device).permute(0, 2, 1, 3)
+    else:
+        out = torch.empty((b, heads, nq, dh), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *out.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.la_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+            heads, nq, k.shape[2], dh, ctypes.c_float(scale),
+            int(q.dtype == torch.bfloat16), strides, stream)
+    _build.check(lib, err, "la_flash_attention")
+    LAUNCHES["flash"] += 1
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(q, k, v) -> out``: the kernel forward and the plain backward,
+    :func:`flash_attention_plain` recomputed under autograd, on any device
+    (the JAX package has no backward kernel for it either). CPU tensors
+    (and any tensor inside :func:`plain_attention`) take the plain forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        if _plain_requested or q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, scale)
+        return _launch_flash(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+            out = flash_attention_plain(q, k, v, ctx.scale)
+        return (*torch.autograd.grad(out, (q, k, v), dout), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """softmax(q . k^T * scale) . v with q (B, H, Q, dh) and k, v (B, H, K,
+    dh) of one dtype; on the card dh is one of :data:`FLASH_HEAD_DIMS` and
+    the dtype fp32 or bf16. Returns (B, H, Q, dh) in that dtype."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"q must be (B, H, Q, dh) and k, v (B, H, K, dh), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         f"in batch, heads or head width")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k and v must share one dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q, k and v lie on {q.device}, {k.device}, "
+                         f"{v.device}")
+    if min(q.shape[2], k.shape[2]) < 1:
+        raise ValueError("q and k need at least one token each")
+    return FlashAttention.apply(q, k, v, scale)
 
 
 def reset_launches() -> None:

@@ -1,8 +1,10 @@
 """Device time of the forward kernels at their main paths' shapes (ViT-B's
-lanes kernels, ViT-H's packed kernels, and the fused TwoWayTransformer at the
+lanes kernels, ViT-H's packed kernels, the fused TwoWayTransformer at the
 episode-decode path's two call sites: 96 prompt-encoder instances and 16
-mask-decoder instances of 900 image tokens against 6 tokens, bf16), for
-comparing two checkouts on one card.
+mask-decoder instances of 900 image tokens against 6 tokens, bf16, and the
+plain flash kernel at the affinity decoder's call: 6 x 8 heads of 4096
+queries against 8192 keys, 32 wide, bf16 and fp32), for comparing two
+checkouts on one card.
 
     python labelanything_tpu_torch/ops/time_kernels.py [--root DIR] [--label X]
 
@@ -104,6 +106,32 @@ def time_fused_twoway(opts) -> None:
                 card=torch.cuda.get_device_name(0))))
 
 
+# plain flash attention: batch (episodes x classes), heads, queries, keys,
+# head width; the affinity decoder's call on 2 episodes of 2-way 1-shot
+FLASH_SHAPE = (6, 8, 4096, 8192, 32)
+
+
+def time_flash(opts) -> None:
+    """The flash kernel on the head-split views of token-major projections,
+    as the affinity decoder's attention hands them over."""
+    from labelanything_tpu_torch.ops import flash_attention as fa
+
+    b, heads, nq, nk, dh = FLASH_SHAPE
+    rng = np.random.default_rng(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, n, heads * dh), np.float32)).cuda().to(dtype).view(
+                b, n, heads, dh).transpose(1, 2) for n in (nq, nk, nk))
+        median, least, per_call = device_and_call_ms(
+            lambda: fa.flash_attention(q, k, v, dh ** -0.5), opts.launches,
+            opts.repeats)
+        print(json.dumps(dict(
+            label=opts.label, kernel="flash", dtype=str(dtype), batch=b,
+            heads=heads, queries=nq, keys=nk, head_dim=dh,
+            device_ms_per_launch=median, device_ms_min=least,
+            call_ms_median=per_call, card=torch.cuda.get_device_name(0))))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=".")
@@ -142,6 +170,8 @@ def main() -> None:
     if os.path.exists(os.path.join(
             opts.root, "labelanything_tpu_torch/ops/fused_twoway.py")):
         time_fused_twoway(opts)
+    if hasattr(fa, "flash_attention"):
+        time_flash(opts)
 
 
 if __name__ == "__main__":

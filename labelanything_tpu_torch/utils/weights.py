@@ -4,8 +4,9 @@
   (numpy leaves: parameters, or gradients or updated parameters of the same
   tree, since it is a pure layout map) into a state dict of the original
   PyTorch LabelAnything layout, which the port's modules load with
-  ``load_state_dict(strict=True)``. :func:`export_state_dict` is the
-  port's own copy of the JAX package's function of that name
+  ``load_state_dict(strict=True)`` (the affinity decoder's up-convs keep
+  their flax names, ``up_conv0`` to ``up_conv2``). :func:`export_state_dict`
+  is the port's own copy of the JAX package's function of that name
   (``utils/torch_import.py``; held equal to it by a test), extended by the
   SAM encoder's names.
 * :func:`init_weights` fills every parameter and buffer of a module from a
@@ -110,12 +111,30 @@ def export_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
+def _affinity_names(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The export maps ``up_conv1`` / ``up_conv2`` to the prototype decoder's
+    ``output_upscaling.0`` / ``.3`` in any tree; an affinity decoder (the
+    one with an ``up_conv0``) keeps its three up-convs' flax names."""
+    prefixes = [key[:-len("up_conv0.weight")] for key in state
+                if key.endswith("up_conv0.weight")]
+    out = {}
+    for key, value in state.items():
+        for prefix in prefixes:
+            for index, conv in (("0", "up_conv1."), ("3", "up_conv2.")):
+                old = f"{prefix}output_upscaling.{index}."
+                if key.startswith(old):
+                    key = prefix + conv + key[len(old):]
+        out[key] = value
+    return out
+
+
 def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Reference-layout state dict (CPU tensors) of a JAX parameter tree,
     with or without the top-level ``{"params": ...}`` wrapper."""
+    state = _affinity_names(export_state_dict(params))
     return {_apply_renames(key, _ENCODER_RENAMES):
             torch.from_numpy(np.array(value, np.float32))
-            for key, value in export_state_dict(params).items()}
+            for key, value in state.items()}
 
 
 def init_weights(module: nn.Module, seed: int = 0) -> None:

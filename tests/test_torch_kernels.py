@@ -388,3 +388,90 @@ def test_fused_twoway_rejects_bad_input(cuda):
             keys[..., :128].contiguous(), queries[..., :128].contiguous(),
             pe[..., :128].contiguous(), ft.twoway_params(small), 2, 8)
     assert fa.LAUNCHES["fused_twoway"] == before
+
+
+def _flash_inputs(b, heads, nq, nk, dh, dtype, device, token_major, seed=0):
+    """q (b, heads, nq, dh) and k, v (b, heads, nk, dh): as the attention's
+    head split views them (token-major projections) or contiguous."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in (nq, nk, nk):
+        x = torch.from_numpy(rng.standard_normal((b, n, heads, dh),
+                                                 np.float32)).to(device, dtype)
+        x = x.transpose(1, 2)
+        out.append(x if token_major else x.contiguous())
+    return out
+
+
+FLASH_CASES = [
+    # (b, heads, nq, nk, dh)
+    (6, 8, 4096, 8192, 32),     # the affinity decoder's call
+    (1, 2, 1152, 1152, 32),     # ragged last tiles, as the JAX tail case
+    (2, 2, 1024, 2048, 64),
+    (1, 2, 1152, 1024, 128),
+    (1, 2, 1024, 1152, 256),
+    (2, 3, 70, 100, 64),        # both lengths under one tile
+]
+
+
+@pytest.mark.parametrize("token_major", [True, False])
+@pytest.mark.parametrize("b,heads,nq,nk,dh", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, b, heads, nq, nk, dh, token_major):
+    """fp32 within 1e-4; bf16 by the 4x rule; the output lies as q does and
+    the other layout of the same values gives the same bits."""
+    q, k, v = _flash_inputs(b, heads, nq, nk, dh, torch.float32, cuda,
+                            token_major)
+    scale = dh ** -0.5
+    before = fa.LAUNCHES["flash"]
+    out = fa.flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash"] == before + 1
+    assert fa._token_major(out) == (token_major and heads > 1)
+    torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v, scale),
+                               rtol=1e-4, atol=1e-4)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    out_b = fa.flash_attention(qb, kb, vb, scale)
+    ok, diff, floor = _bf16_ok(
+        out_b, fa.flash_attention_plain(qb, kb, vb, scale),
+        fa.flash_attention_plain(qb.float(), kb.float(), vb.float(), scale))
+    assert out_b.dtype == torch.bfloat16 and ok, (diff, floor)
+    other = fa.flash_attention(qb.contiguous(), kb.contiguous(),
+                               vb.contiguous(), scale)
+    assert torch.equal(other, out_b)
+
+
+def test_flash_kernel_gradient_and_plain_by_name(cuda):
+    """Kernel forward, plain backward: autograd through the twin's
+    gradients (fp32, rtol = atol = 1e-4); inside ``plain_attention()`` no
+    launch."""
+    q, k, v = _flash_inputs(2, 2, 1152, 1024, 32, torch.float32, cuda, True)
+    ct = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 2, 1152, 32), np.float32)).to(cuda)
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_plain):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves, 0.2), leaves, ct))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    before = fa.LAUNCHES["flash"]
+    with fa.plain_attention():
+        fa.flash_attention(q, k, v, 0.2)
+    assert fa.LAUNCHES["flash"] == before
+
+
+def test_flash_kernel_rejects_bad_input(cuda):
+    """A head width the kernel is not compiled for, a strided last axis, an
+    unaligned view or fp16 raise on the card; nothing reaches the twin."""
+    before = fa.LAUNCHES["flash"]
+    q, k, v = _flash_inputs(1, 2, 128, 128, 48, torch.float32, cuda, False)
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_attention(q, k, v, 0.2)
+    q, k, v = _flash_inputs(1, 2, 128, 128, 64, torch.bfloat16, cuda, False)
+    wide = torch.cat([q, q], -1)
+    with pytest.raises(ValueError, match="last axis"):
+        fa.flash_attention(wide[..., ::2], k, v, 0.1)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(wide[..., 4:68], k, v, 0.1)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half(), 0.1)
+    assert fa.LAUNCHES["flash"] == before

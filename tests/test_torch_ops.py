@@ -182,7 +182,7 @@ def test_relpos_cuda_route_never_falls_back():
         assert tfa._plain_requested
     assert not tfa._plain_requested
     assert sorted(tfa.LAUNCHES) == [
-        "fused_twoway", "relpos_global", "relpos_global_bwd", "relpos_packed_bf16exp",
+        "flash", "fused_twoway", "relpos_global", "relpos_global_bwd", "relpos_packed_bf16exp",
         "relpos_packed_global", "relpos_packed_onehot",
         "relpos_packed_window", "relpos_window", "relpos_window_bwd"]
 
@@ -216,6 +216,9 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.data.synthetic",
                "labelanything_tpu_torch.models.registry",
                "labelanything_tpu_torch.ops.flash_attention",
+               "labelanything_tpu_torch.ops.attention",
+               "labelanything_tpu_torch.models.affinity_decoder",
+               "labelanything_tpu_torch.models.transformer",
                "labelanything_tpu_torch.ops.fused_twoway",
                "labelanything_tpu_torch.ops.twoway_shared",
                "labelanything_tpu_torch.ops._build",
