@@ -1,7 +1,9 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: ViT-B serving and a
 fine-tune training step, the ViT-H and ViT-L encoders (serving and
-embedding), episode decode on precomputed embeddings, then the affinity
-decoder on SAM embeddings at 1024 px.
+embedding), episode decode on precomputed embeddings, the affinity decoder
+on SAM embeddings at 1024 px, then the SAM encoder's two opt-in kernels
+(the fused windowed block and int8 scores) served and embedding, and the
+full-size golden fixtures.
 
 Run from the repository root, with no arguments:
 
@@ -42,13 +44,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bf16 by the same rules, its strided views against contiguous tensors
    bit for bit, a gradient through its autograd function against autograd
    through the twin; kernel, twin and ``scaled_dot_product_attention`` are
-   timed and the bound counts the exponentials beside the products;
+   timed and the bound counts the exponentials beside the products. The
+   fused windowed block (K8) is held against ``fused_window_plain`` at one
+   1024-px image's windowed block (25 windows, 64 x 64 padded to 70 x 70)
+   of ViT-B (12 heads of 64) and ViT-H (16 heads of 80), fp32 and bf16;
+   kernel, twin and the unfused kernel path it replaces (partition copy,
+   K2 or the packed windowed kernel, projection, unpartition, residual)
+   are timed. The int8 score branch of the global kernel is held against
+   ``relpos_attention_int8_plain`` at ViT-B's global block (1, 4096,
+   2304), the plain bf16 / fp32 pair being the int8 twin on bf16 and on
+   fp32-cast inputs; kernel, twin, SDPA on the expanded bias and the bf16
+   kernel are timed, and its drift from the bf16 kernel printed;
 3. slice parity: a 1-way 1-shot episode at 1024 px through the full fp32
    slice on the GPU (kernels) and on the CPU (plain twins), logits within
    rtol 1e-3 / atol 5e-4 and argmax agreement > 0.999;
 4. serving: ``LabelAnything`` in bf16, ``generate_class_embeddings`` on a
    1-way 5-shot support set, then 3 ``predict`` requests; checks shapes,
-   finite logits, the 0 / -inf pad fill and the kernels' launch counts;
+   finite logits, the 0 / -inf pad fill and the kernels' launch counts; a
+   profiler pass over one request;
 5. step parity: one fp32 training pass (forward, focal loss, backward) of
    a 1-way 1-shot episode on the card twice from the same weights and
    class rows, through the kernels and through the plain twins
@@ -86,9 +99,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 10. decode parity (fp32): ``lam_no_vit`` (the model block of
    parameters/trainval/coco20i/mae.yaml: 480 px, 768-wide embeddings, width
    256) on 2 episodes of 5-way 1-shot, with and without mask prompts, on
-   the card (fused kernel) against the CPU (plain twins) as phase 3; and on
-   the card the shared-keys form of the prompt encoder's fusion against the
-   expanded one, same tolerance;
+   the card against the CPU (plain twins) as phase 3, fp32 taking the
+   module path (the fused kernel's route rule admits bf16 only); the same
+   forward with the fp32 kernel forced (route rule patched to what the
+   kernel is compiled for: 2 launches) against the CPU, its forward time
+   beside the module path's; and on the card the shared-keys form of the
+   prompt encoder's fusion against the expanded one, same tolerance;
 11. decode (bf16): the JAX package's ``bench_decode``: two batches of 16
    episodes of 5-way 1-shot alternating, 1 warm-up and 8 timed steps, with
    masks and without: episodes per second, peak memory, logits (16, 6, 480,
@@ -106,7 +122,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    second, peak memory, logits (2, 3, 1024, 1024) finite in the valid
    region of flagged classes with the pad fill and with no finite value
    for a class no example flags, 2 flash launches a forward; a profiler
-   pass; the same forwards inside ``plain_attention()``.
+   pass; the same forwards inside ``plain_attention()``;
+14. options parity (fp32): ``lam_b`` with ``fused_window=True`` on the card
+   against the CPU and against ``fused_window=False`` on the card, as phase
+   3; ``build_vit_h`` with the option (28 K8 launches of 80-wide heads, 4
+   packed global) against the same call inside ``plain_attention()``, as
+   phase 7; one fp32 training pass of phase 5 with the option against the
+   unfused pass, gradients under phase 5's rules;
+15. options serving (bf16): ``lam_b`` requests with ``fused_window=True``
+   (8 K8 + 4 global launches an encoder call, no windowed kernel; a
+   profiler pass) and with ``int8_scores=True`` (4 int8 global + 8
+   windowed launches), beside phase 4's, with the int8 logits' argmax
+   agreement with phase 4's; ``build_vit_b`` / ``build_vit_l`` /
+   ``build_vit_h`` embedding 8 images with ``fused_window`` on (8 / 20 / 28
+   K8 launches a call, no windowed kernel) beside off;
+16. golden replays (fp32): ``canonical_full_forward`` (``lam_no_vit`` at
+   480 px) and ``sam_released_full_forward`` (``lam_b`` at 1024 px, with
+   ``fused_window`` off and on) through the port on the card, held to the
+   original PyTorch LabelAnything's outputs at the cases' tolerances.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. The models are the repo's LAM
@@ -117,6 +150,7 @@ a seed (``utils.weights.init_weights``).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -129,7 +163,8 @@ import torch.nn.functional as F
 from labelanything_tpu_torch.api import LabelAnything
 from labelanything_tpu_torch.data.synthetic import (random_batch,
                                                     random_full_batch)
-from labelanything_tpu_torch.models.build_encoder import (build_vit_h,
+from labelanything_tpu_torch.models.build_encoder import (build_vit_b,
+                                                          build_vit_h,
                                                           build_vit_l)
 from labelanything_tpu_torch.models.build_lam import build_lam
 from labelanything_tpu_torch.models.image_encoder import ImageEncoderViT
@@ -137,13 +172,17 @@ from labelanything_tpu_torch.models.transformer import TwoWayTransformer
 from labelanything_tpu_torch.ops import _build
 from labelanything_tpu_torch.ops import flash_attention as fa
 from labelanything_tpu_torch.ops import fused_twoway as ft
+from labelanything_tpu_torch.ops import fused_window as fw
 from labelanything_tpu_torch.ops import microbench_softmax_dtype as microbench
+from labelanything_tpu_torch.ops.time_kernels import unfused_window_call
 from labelanything_tpu_torch.parallel.train_step import (init_train_state,
                                                          make_train_step)
 from labelanything_tpu_torch.train.losses import LabelAnythingLoss
 from labelanything_tpu_torch.train.substitutor import Substitutor
 from labelanything_tpu_torch.typing import BatchKeys, ResultDict
 from labelanything_tpu_torch.utils.weights import init_weights
+from tests.golden import CASES
+from tests.torch_golden_replay import replay
 
 # the model block of parameters/trainval/other/COCO_vit.yaml
 CONFIG = dict(name="lam_b", spatial_convs=3, class_attention=False,
@@ -281,6 +320,24 @@ NO_GRADIENT = ("prompt_encoder.point_embeddings.0.",
 # a bias added to every key shifts all scores of a query alike, which the
 # softmax ignores: its gradient is zero up to rounding and may not move it
 ZERO_GRADIENT = "k_proj.bias"
+# the fused windowed block (K8) at one 1024-px image's windowed block:
+# 25 windows of 14 x 14, 64 x 64 padded to 70 x 70; ViT-B, then ViT-H
+FUSED_WINDOW = dict(name="fused_window", b=1, hp=70, ws=14, heads=HEADS,
+                    dh=64, source=_SRC + "fused_window.cu",
+                    replaces="labelanything_tpu/ops/fused_window.py:236")
+FUSED_WINDOW_H = dict(FUSED_WINDOW, heads=HEADS_H, dh=DH_H)
+# the int8 score branch of the global kernel at ViT-B's global block
+INT8 = dict(KERNELS[0], name="relpos_global_int8",
+            source=_SRC + "relpos_global_int8.cu", replaces=_JAX + "170")
+# tensor-core rate of int8 products (H100 SXM, dense)
+PEAK_INT8_OPS = 1979e12
+# launches of one encoder call with the options: every windowed block takes
+# K8 (ViT-B 8, ViT-L 20, ViT-H 28), the global blocks their usual kernel;
+# with int8 scores the 64-wide global blocks take the int8 kernel
+FUSED_LAUNCHES = {"relpos_global": 4, "fused_window": 8}
+FUSED_LAUNCHES_L = {"relpos_global": 4, "fused_window": 20}
+FUSED_LAUNCHES_H = {"relpos_packed_global": 4, "fused_window": 28}
+INT8_LAUNCHES = {"relpos_global_int8": 4, "relpos_window": 8}
 
 
 def check(ok: bool, what: str) -> None:
@@ -607,6 +664,177 @@ def check_backward(k: dict, timed: bool = True) -> dict:
     return stats
 
 
+def fused_window_inputs(k: dict) -> list:
+    """fp32 operands of K8 as the encoder hands them over: the residual x
+    and the qkv projection (B, Hp, Wp, C / 3C), r a (B, heads, Hp, Wp,
+    2 ws) view of the (B, Hp, Wp, heads, 2 ws) einsum output, the output
+    projection (C_out, C_in) and its bias."""
+    rng = np.random.default_rng(1)
+    b, hp, ws, heads = k["b"], k["hp"], k["ws"], k["heads"]
+    c = heads * k["dh"]
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32)).cuda()
+    r = (0.5 * f(b, hp, hp, heads, 2 * ws)).permute(0, 3, 1, 2, 4)
+    return [f(b, hp, hp, c), f(b, hp, hp, 3 * c), r, f(c, c) / c ** 0.5,
+            0.1 * f(c)]
+
+
+def fused_window_bound(k: dict, exp_rate: float) -> dict:
+    """Least time the card could take for one K8 call in bf16. Operations:
+    the windows' q.k^T and P.v products (4 T^2 dh flops a head and window)
+    and the projection (2 Hp Wp C^2) on the tensor cores, one exponential a
+    score on the special-function units; the longer of the two. Bytes: x,
+    qkv, r, the projection's weight and bias read and out written once."""
+    b, hp, ws, heads, dh = (k[x] for x in ("b", "hp", "ws", "heads", "dh"))
+    c, t = heads * dh, ws * ws
+    windows = b * (hp // ws) ** 2
+    flops = windows * heads * 4 * t * t * dh + 2 * b * hp * hp * c * c
+    exps = windows * heads * t * t
+    nbytes = 2 * (b * hp * hp * (c + 3 * c + heads * 2 * ws + c) + c * c + c)
+    t_ops = max(flops / PEAK_FLOPS, exps / exp_rate)
+    t_bytes = nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, exps=exps, bytes=nbytes)
+
+
+@torch.no_grad()
+def check_fused_window(k: dict, exp_rate: float) -> dict:
+    """K8 against ``fused_window_plain``: fp32 (rtol = atol = 1e-4) and
+    bf16 (the 4x rule); the unfused kernel path on the same operands is
+    held against the twin in fp32 and timed beside kernel and twin."""
+    args = (k["dh"] ** -0.5, k["heads"], k["ws"])
+    inputs = fused_window_inputs(k)
+    before = fa.LAUNCHES["fused_window"]
+    out = fw.fused_window_attention(*inputs, *args)
+    ref = fw.fused_window_plain(*inputs, *args)
+    torch.cuda.synchronize()
+    check(fa.LAUNCHES["fused_window"] == before + 1,
+          "fused_window: one launch a call")
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    err32 = (out - ref).abs().max().item()
+    unfused32 = unfused_window_call(*inputs, k["heads"], k["ws"])
+    torch.testing.assert_close(unfused32(), ref, rtol=1e-4, atol=1e-4)
+    low = [t.bfloat16() for t in inputs]
+    out = fw.fused_window_attention(*low, *args)
+    ref = fw.fused_window_plain(*low, *args).float()
+    ref32 = fw.fused_window_plain(*[t.float() for t in low], *args)
+    err16 = (out.float() - ref).abs().max().item()
+    floor = (ref - ref32).abs().max().item()
+    check(err16 <= 4 * floor + 1e-6, f"fused_window dh {k['dh']} bf16 error "
+          f"{err16} > 4 x floor {floor}")
+    unfused = unfused_window_call(*low, k["heads"], k["ws"])
+    unfused_err = (unfused().float() - ref32).abs().max().item()
+    del out, ref, ref32
+    return dict(
+        max_abs_err=err32, max_abs_err_bf16=err16, bf16_floor=floor,
+        unfused_err_bf16=unfused_err,
+        ms=median_ms(lambda: fw.fused_window_attention(*low, *args)),
+        plain_ms=median_ms(lambda: fw.fused_window_plain(*low, *args)),
+        library_ms=median_ms(unfused),
+        ms_fp32=median_ms(lambda: fw.fused_window_attention(*inputs, *args)),
+        plain_ms_fp32=median_ms(lambda: fw.fused_window_plain(*inputs,
+                                                              *args)),
+        library_ms_fp32=median_ms(unfused32),
+        **fused_window_bound(k, exp_rate))
+
+
+def check_fused_window_all() -> dict:
+    """K8 at ViT-B's and ViT-H's shapes; the summary's numbers are ViT-B's,
+    ViT-H's nested under ``vit_h``."""
+    exp_rate = card_exp_rate()
+    out = {}
+    for model, k in (("vit_b", FUSED_WINDOW), ("vit_h", FUSED_WINDOW_H)):
+        s = out[model] = check_fused_window(k, exp_rate)
+        print(f"kernel fused_window, {model}: 1 image, 25 windows, "
+              f"{k['heads']} heads of {k['dh']}: fp32 err "
+              f"{s['max_abs_err']:.3g}, bf16 err {s['max_abs_err_bf16']:.3g} "
+              f"(floor {s['bf16_floor']:.3g}; the unfused path's bf16 "
+              f"{s['unfused_err_bf16']:.3g}); bf16 {s['ms']:.4f} ms vs plain "
+              f"{s['plain_ms']:.4f} ms, unfused kernel path "
+              f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms by "
+              f"{s['bound_by']}; fp32 {s['ms_fp32']:.4f} ms vs plain "
+              f"{s['plain_ms_fp32']:.4f} ms, unfused "
+              f"{s['library_ms_fp32']:.4f} ms")
+    summary = dict(out["vit_b"])
+    summary["vit_h"] = out["vit_h"]
+    return {"fused_window": summary}
+
+
+def int8_bound(k: dict, exp_rate: float) -> dict:
+    """Least time the card could take for one int8-score call in bf16: the
+    score products in int8 and P.v in bf16 share the tensor cores (2 N^2 dh
+    operations a head each), the exponentials (one a score) run on the
+    special-function units beside them; the longer of the two, against the
+    bytes of qkv, r and out."""
+    kh, kw = k["grid"]
+    b, n, c = k["b"], kh * kw, HEADS * 64
+    pairs = b * HEADS * n * n
+    t_tc = 2 * pairs * 64 / PEAK_INT8_OPS + 2 * pairs * 64 / PEAK_FLOPS
+    t_ops = max(t_tc, pairs / exp_rate)
+    nbytes = 2 * b * n * (3 * c + HEADS * (kh + kw) + c)
+    t_bytes = nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                tensor_core_ms=1e3 * t_tc, exp_ms=1e3 * pairs / exp_rate,
+                bytes=nbytes)
+
+
+@torch.no_grad()
+def check_int8() -> dict:
+    """The int8 kernel against the int8 twin: fp32 (rtol = atol = 1e-4),
+    bf16 by the 4x rule (the twin on bf16 and on fp32-cast inputs); its
+    drift from the bf16 kernel; kernel, twin, the bf16 kernel and SDPA on
+    the expanded bias timed."""
+    k = INT8
+    args = kernel_args(k)
+    qkv, r, _ = kernel_inputs(k)
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention_relpos_lanes(qkv, r, *args, int8_scores=True)
+    ref = fa.relpos_attention_int8_plain(qkv, r, *args)
+    torch.cuda.synchronize()
+    check(fa.LAUNCHES["relpos_global_int8"] == before["relpos_global_int8"] + 1
+          and fa.LAUNCHES["relpos_global"] == before["relpos_global"],
+          "relpos_global_int8: one launch a call")
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    err32 = (out - ref).abs().max().item()
+    qb, rb = qkv.bfloat16(), r.bfloat16()
+    out = fa.flash_attention_relpos_lanes(qb, rb, *args, int8_scores=True)
+    ref = fa.relpos_attention_int8_plain(qb, rb, *args).float()
+    ref32 = fa.relpos_attention_int8_plain(qb.float(), rb.float(), *args)
+    err16 = (out.float() - ref).abs().max().item()
+    floor = (ref - ref32).abs().max().item()
+    check(err16 <= 4 * floor + 1e-6,
+          f"relpos_global_int8 bf16 error {err16} > 4 x floor {floor}")
+    full = fa.flash_attention_relpos_lanes(qb, rb, *args).float()
+    drift = (out.float() - full).abs().max().item() / full.abs().max().item()
+    del out, ref, ref32, full
+    stats = dict(
+        max_abs_err=err32, max_abs_err_bf16=err16, bf16_floor=floor,
+        drift_from_bf16_kernel=drift,
+        ms=median_ms(lambda: fa.flash_attention_relpos_lanes(
+            qb, rb, *args, int8_scores=True)),
+        plain_ms=median_ms(lambda: fa.relpos_attention_int8_plain(qb, rb,
+                                                                  *args)),
+        library_ms=median_ms(lambda: library_attention(qb, rb, k["grid"])),
+        bf16_kernel_ms=median_ms(lambda: fa.flash_attention_relpos_lanes(
+            qb, rb, *args)),
+        ms_fp32=median_ms(lambda: fa.flash_attention_relpos_lanes(
+            qkv, r, *args, int8_scores=True)),
+        plain_ms_fp32=median_ms(lambda: fa.relpos_attention_int8_plain(
+            qkv, r, *args)), **int8_bound(k, card_exp_rate()))
+    print(f"kernel relpos_global_int8 b 1 grid (64, 64): fp32 err "
+          f"{err32:.3g}, bf16 err {err16:.3g} (floor {floor:.3g}); relative "
+          f"drift from the bf16 kernel {drift:.3g}; bf16 {stats['ms']:.4f} ms "
+          f"vs plain {stats['plain_ms']:.4f} ms, library "
+          f"{stats['library_ms']:.4f} ms, bf16 kernel "
+          f"{stats['bf16_kernel_ms']:.4f} ms, bound {stats['bound_ms']:.4f} "
+          f"ms by {stats['bound_by']} (tensor cores "
+          f"{stats['tensor_core_ms']:.4f} ms, exponentials "
+          f"{stats['exp_ms']:.4f} ms); fp32 {stats['ms_fp32']:.4f} ms vs "
+          f"plain {stats['plain_ms_fp32']:.4f} ms")
+    return {k["name"]: stats}
+
+
 def phase_kernels() -> dict:
     results = {}
     for k in KERNELS + PACKED_KERNELS:
@@ -647,6 +875,8 @@ def phase_kernels() -> dict:
     results.update(variants)
     results.update(check_twoway())
     results.update(check_flash_all())
+    results.update(check_fused_window_all())
+    results.update(check_int8())
     return results
 
 
@@ -987,8 +1217,10 @@ def expect_launches(launches: dict, expected: dict, what: str) -> None:
 
 def phase_serve(config: dict = CONFIG, per_call: dict = ENCODER_LAUNCHES,
                 shots: int = 5, requests: int = 3,
-                profile: bool = False) -> dict:
+                profile: bool = False) -> tuple:
+    """(launches, the first request's logits)."""
     name = config["name"]
+    options = [k for k in ("fused_window", "int8_scores") if config.get(k)]
     la = LabelAnything(dict(config, dtype="bf16"), seed=SEED)   # on the card
     check(next(la.model.parameters()).is_cuda, f"{name} is not on the card")
     episode = random_batch(batch_size=1, num_examples=shots, num_classes=2,
@@ -1030,21 +1262,22 @@ def phase_serve(config: dict = CONFIG, per_call: dict = ENCODER_LAUNCHES,
     check(all(torch.equal(outs[0], o) for o in outs[1:]),
           "repeated requests differ")
     peak = torch.cuda.max_memory_allocated()
-    print(f"serve {name}: support set ({shots} images) "
+    print(f"serve {name}{''.join(' ' + o for o in options)}: support set "
+          f"({shots} images) "
           f"{support_s * 1e3:.1f} ms; request "
           f"latency median {statistics.median(latencies) * 1e3:.1f} ms "
           f"(all {[round(x * 1e3, 1) for x in latencies]}); peak memory "
           f"{peak / 2**30:.2f} GiB; launches {nonzero(launches)}")
     if profile:
         profile_steps(lambda: la.predict(query, embs), 2, unit="request")
-    return launches
+    return launches, outs[0]
 
 
-def train_state(dtype: str, **optimizer_args):
+def train_state(dtype: str, config: dict = CONFIG, **optimizer_args):
     """The full-width model with the seeded weights, the focal loss and
     AdamW, on the card (``init_train_state``'s default device)."""
     loss = LabelAnythingLoss({"focal": {"weight": 1.0}}, class_weighting=True)
-    return init_train_state(dict(CONFIG, dtype=dtype), loss, seed=SEED,
+    return init_train_state(dict(config, dtype=dtype), loss, seed=SEED,
                             name="AdamW", learning_rate=LEARNING_RATE,
                             **optimizer_args)
 
@@ -1059,10 +1292,11 @@ def training_batch(batch_size: int, shots: int):
     return {k: v.cuda() for k, v in batch.items()}, gt.cuda()
 
 
-def gradient_pass(dtype: str, batch, gt, plain: bool = False):
+def gradient_pass(dtype: str, batch, gt, plain: bool = False,
+                  config: dict = CONFIG):
     """One training pass (forward, loss, backward, no update) of a fresh
     train state with pinned class rows: (state, loss, gradients by name)."""
-    state = train_state(dtype)
+    state = train_state(dtype, config)
     check(next(state.model.parameters()).is_cuda,
           "the train state is not on the card")
     state.model.prompt_encoder.class_encoder.rows = (0, 7)
@@ -1088,6 +1322,47 @@ def direction(grads: dict, ref: dict) -> tuple:
     return dot / (sq * sq_ref) ** 0.5, sq ** 0.5, sq_ref ** 0.5
 
 
+def compare_gradients(loss: float, grads: dict, loss_ref: float,
+                      grads_ref: dict, what: str, name: str,
+                      ref_name: str) -> None:
+    """Phase 5's rules: loss within 1e-5 relative; each parameter's
+    gradient within a relative L2 distance of GRAD_REL_L2, those under
+    GRAD_FLOOR of the whole gradient's norm held to that floor, the 24
+    rel-pos tables to their own norm."""
+    check(np.isfinite(loss) and abs(loss - loss_ref) <= 1e-5 * abs(loss_ref),
+          f"{what}: loss {loss} vs {loss_ref}")
+    total = sum(float(g.norm()) ** 2 for g in grads_ref.values()
+                if g is not None) ** 0.5
+    rows, rel_pos = [], {}
+    for key, ref in grads_ref.items():
+        got = grads[key]
+        check((got is None) == (ref is None), f"{key}: gradient present in "
+              f"one run only")
+        if ref is None:
+            continue
+        check(bool(torch.isfinite(got).all()), f"{key}: gradient not finite")
+        norm = ref.norm().item()
+        # a gradient below GRAD_FLOOR of the whole gradient's norm is
+        # rounding noise of its own sums; it is held to that floor instead
+        diff = (got - ref).norm().item()
+        if key.endswith(("rel_pos_h", "rel_pos_w")):
+            # fed by the attention's dr alone: held to its own norm
+            check(norm > 0, f"{key}: zero gradient")
+            rel_pos[key] = diff / norm
+            rows.append((diff / norm, key, norm))
+        else:
+            rows.append((diff / max(norm, GRAD_FLOOR * total), key, norm))
+    rows.sort(reverse=True)
+    for rel, key, norm in rows[:5]:
+        print(f"{what}: relative L2 {rel:.3g} (norm {norm:.3g}) {key}")
+    print(f"{what}: loss {name} {loss:.8f} {ref_name} {loss_ref:.8f}; "
+          f"gradients of {len(rows)} parameters, norm {total:.4g}; "
+          f"rel_pos_h / rel_pos_w worst {max(rel_pos.values()):.3g}")
+    check(len(rel_pos) == 24, f"{len(rel_pos)} rel-pos tables")
+    check(rows[0][0] <= GRAD_REL_L2,
+          f"{what}: {rows[0][1]} relative L2 {rows[0][0]}")
+
+
 def phase_step_parity() -> None:
     batch, gt = training_batch(batch_size=1, shots=1)
     runs = {}
@@ -1104,38 +1379,8 @@ def phase_step_parity() -> None:
               f"launches {nonzero(launches)}")
     (state, loss_k, grads_k), (_, loss_p, grads_p) = (runs.pop("kernels"),
                                                       runs.pop("plain"))
-    check(np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
-          f"step parity: loss {loss_k} vs {loss_p}")
-    total = sum(float(g.norm()) ** 2 for g in grads_p.values()
-                if g is not None) ** 0.5
-    rows, rel_pos = [], {}
-    for name, ref in grads_p.items():
-        got = grads_k[name]
-        check((got is None) == (ref is None), f"{name}: gradient present in "
-              f"one run only")
-        if ref is None:
-            continue
-        check(bool(torch.isfinite(got).all()), f"{name}: gradient not finite")
-        norm = ref.norm().item()
-        # a gradient below GRAD_FLOOR of the whole gradient's norm is
-        # rounding noise of its own sums; it is held to that floor instead
-        diff = (got - ref).norm().item()
-        if name.endswith(("rel_pos_h", "rel_pos_w")):
-            # fed by the kernels' dr alone: held to its own norm, no floor
-            check(norm > 0, f"{name}: zero gradient")
-            rel_pos[name] = diff / norm
-            rows.append((diff / norm, name, norm))
-        else:
-            rows.append((diff / max(norm, GRAD_FLOOR * total), name, norm))
-    rows.sort(reverse=True)
-    for rel, name, norm in rows[:5]:
-        print(f"step parity: relative L2 {rel:.3g} (norm {norm:.3g}) {name}")
-    print(f"step parity: loss kernels {loss_k:.8f} plain {loss_p:.8f}; "
-          f"gradients of {len(rows)} parameters, norm {total:.4g}; "
-          f"rel_pos_h / rel_pos_w worst {max(rel_pos.values()):.3g}")
-    check(len(rel_pos) == 24, f"{len(rel_pos)} rel-pos tables")
-    check(rows[0][0] <= GRAD_REL_L2,
-          f"step parity: {rows[0][1]} relative L2 {rows[0][0]}")
+    compare_gradients(loss_k, grads_k, loss_p, grads_p,
+                      "step parity", "kernels", "plain")
     del grads_p
 
     # the same pass in bf16, as phase 6 trains: its whole gradient must
@@ -1193,7 +1438,8 @@ def profile_steps(run_step, steps: int = 2, unit: str = "step") -> None:
         print(f"profile:   {t / steps:8.3f} ms a {unit}, {n // steps:5d} "
               f"launches  {key[:90]}")
     for t, n, key in sorted(kernels, reverse=True):
-        if "relpos" in key or "twoway" in key or "flash" in key:
+        if any(name in key for name in ("relpos", "twoway", "flash",
+                                         "fused_window")):
             print(f"profile:   {t / n:8.4f} ms a launch on the device  "
                   f"{key[:90]}")
 
@@ -1370,10 +1616,12 @@ def phase_vit_h_parity() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_embed(build, name: str, per_call: dict) -> dict:
+def phase_embed(build, name: str, per_call: dict, **options) -> dict:
     """``bench_vit``'s set-up: the encoder in bf16 with the SAM neck on a
-    batch of standard-normal images, no gradient."""
-    vit = encoder_on_card(build, dtype=torch.bfloat16)
+    batch of standard-normal images, no gradient; ``options`` go to the
+    builder."""
+    vit = encoder_on_card(build, dtype=torch.bfloat16, **options)
+    name += "".join(" " + o for o in options)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (EMBED_BATCH, 1024, 1024, 3), np.float32)).cuda().bfloat16()
     torch.cuda.synchronize()
@@ -1401,7 +1649,7 @@ def phase_embed(build, name: str, per_call: dict) -> dict:
           f"{nonzero(launches)}")
     del vit, out
     torch.cuda.empty_cache()
-    return launches
+    return launches, EMBED_BATCH / ms * 1e3
 
 
 def decode_batches(batch_size: int, include_masks: bool) -> list:
@@ -1412,33 +1660,57 @@ def decode_batches(batch_size: int, include_masks: bool) -> list:
             for seed in (0, 1)]
 
 
+@contextlib.contextmanager
+def fp32_twoway_kernel():
+    """Inside this block ``TwoWayTransformer`` routes every call the fused
+    kernel is compiled for to it, fp32 included, which its route rule
+    sends the module path."""
+    rule = ft.fused_twoway_ok
+    ft.fused_twoway_ok = ft.fused_twoway_compiled
+    try:
+        yield
+    finally:
+        ft.fused_twoway_ok = rule
+
+
 def phase_decode_parity() -> None:
     for include_masks in (True, False):
         what = "with masks" if include_masks else "without masks"
         batch = decode_batches(2, include_masks)[0]
-        logits = {}
-        for name, device, extra in (("cuda", "cuda", {}), ("cpu", "cpu", {}),
-                                    ("shared", "cuda", {"shared_keys": True})):
-            la = LabelAnything(dict(CONFIG_DECODE, dtype="float32", **extra),
-                               device, SEED)
-            fa.reset_launches()
-            t0 = time.perf_counter()
-            out = la.predict(batch)
-            if device == "cuda":
-                torch.cuda.synchronize()
-            logits[name] = out.float().cpu().numpy()
-            # the shared-keys form keeps the prompt encoder off the kernel
-            expected = {"cuda": 2, "cpu": 0, "shared": 1}[name]
-            expect_launches(dict(fa.LAUNCHES), {"fused_twoway": expected},
-                            f"decode parity ({name})")
+        logits, forward_ms = {}, {}
+        # fp32 takes the module path; "kernel" forces the fp32 kernel
+        for name, device, extra, expected in (
+                ("cuda", "cuda", {}, 0), ("cpu", "cpu", {}, 0),
+                ("shared", "cuda", {"shared_keys": True}, 0),
+                ("kernel", "cuda", {}, 2)):
+            with (fp32_twoway_kernel() if name == "kernel"
+                  else contextlib.nullcontext()):
+                la = LabelAnything(dict(CONFIG_DECODE, dtype="float32",
+                                        **extra), device, SEED)
+                fa.reset_launches()
+                t0 = time.perf_counter()
+                out = la.predict(batch)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                logits[name] = out.float().cpu().numpy()
+                expect_launches(dict(fa.LAUNCHES), {"fused_twoway": expected},
+                                f"decode parity ({name})")
+                if name in ("cuda", "kernel"):
+                    forward_ms[name] = 1e3 * statistics.median(
+                        decode_steps(la, [batch, batch], 4)[0])
             print(f"decode parity, {what}: fp32 forward, {name}, "
-                  f"{time.perf_counter() - t0:.2f} s, fused_twoway launches "
-                  f"{expected}")
+                  f"{seconds:.2f} s, fused_twoway launches {expected}")
             del la
         compare_logits(logits["cuda"], logits["cpu"],
                        f"decode parity, {what}")
+        compare_logits(logits["kernel"], logits["cpu"],
+                       f"decode parity, {what}, the fp32 kernel forced")
         compare_logits(logits["shared"], logits["cuda"],
                        f"decode parity, {what}, shared keys against expanded")
+        print(f"decode parity, {what}: fp32 forward of 2 episodes, median of "
+              f"4: module path (the route) {forward_ms['cuda']:.2f} ms, the "
+              f"fp32 kernel forced {forward_ms['kernel']:.2f} ms")
 
 
 def decode_steps(la, batches, steps: int) -> tuple:
@@ -1645,6 +1917,145 @@ def phase_affinity() -> dict:
     return launches
 
 
+def phase_options_parity() -> None:
+    """fp32: ``lam_b`` with ``fused_window=True`` on the card against the
+    CPU and against the unfused card run; ``build_vit_h`` with the option
+    against ``plain_attention()``; one training pass with the option
+    against the unfused pass."""
+    batch = random_batch(batch_size=1, num_examples=1, num_classes=2,
+                         with_images=True, image_size=1024, seed=0)
+    fused = dict(CONFIG, dtype="float32", fused_window=True)
+    logits = {}
+    for name, config, device, expected in (
+            ("card", fused, "cuda", FUSED_LAUNCHES),
+            ("cpu", fused, "cpu", {}),
+            ("unfused", dict(CONFIG, dtype="float32"), "cuda",
+             ENCODER_LAUNCHES)):
+        la = LabelAnything(config, device, SEED)
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        out = la.predict(batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        logits[name] = out.float().cpu().numpy()
+        expect_launches(dict(fa.LAUNCHES), expected,
+                        f"options parity ({name})")
+        print(f"options parity: fp32 lam_b forward, {name}, "
+              f"{time.perf_counter() - t0:.2f} s, launches "
+              f"{nonzero(dict(fa.LAUNCHES))}")
+        del la
+    compare_logits(logits["card"], logits["cpu"],
+                   "options parity, fused_window, card against CPU")
+    compare_logits(logits["card"], logits["unfused"],
+                   "options parity, fused_window against unfused on the card")
+
+    vit = encoder_on_card(build_vit_h, project_last_hidden=False,
+                          fused_window=True)                         # fp32
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 1024, 1024, 3), np.float32)).cuda()
+    fa.reset_launches()
+    with torch.no_grad():
+        out = vit(x)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        with fa.plain_attention():
+            ref = vit(x)
+        torch.cuda.synchronize()
+    expect_launches(launches, FUSED_LAUNCHES_H, "options parity, ViT-H")
+    check(dict(fa.LAUNCHES) == launches,
+          "a kernel was launched inside plain_attention()")
+    print(f"options parity: fp32 ViT-H encoder with fused_window, 32 blocks, "
+          f"max |kernels - plain| {(out - ref).abs().max().item():.3g} at "
+          f"scale {ref.abs().max().item():.3g}; launches {nonzero(launches)}")
+    torch.testing.assert_close(out, ref, rtol=1e-3, atol=5e-4)
+    del vit, out, ref
+    torch.cuda.empty_cache()
+
+    batch, gt = training_batch(batch_size=1, shots=1)
+    runs = {}
+    for name, config, expected in (
+            ("fused", dict(CONFIG, fused_window=True),
+             {"relpos_global": 4, "relpos_global_bwd": 4, "fused_window": 8}),
+            ("unfused", CONFIG, TRAIN_LAUNCHES)):
+        fa.reset_launches()
+        runs[name] = gradient_pass("float32", batch, gt, config=config)
+        expect_launches(dict(fa.LAUNCHES), expected,
+                        f"options parity, training pass ({name})")
+    (_, loss_f, grads_f), (_, loss_u, grads_u) = runs["fused"], runs["unfused"]
+    compare_gradients(loss_f, grads_f, loss_u, grads_u,
+                      "options parity, fp32 training pass", "fused_window",
+                      "unfused")
+    del runs, grads_f, grads_u
+    torch.cuda.empty_cache()
+
+
+def phase_options_serve(logits_full: torch.Tensor) -> list:
+    """bf16: ``lam_b`` requests with each option beside phase 4's; the
+    encoders embedding with ``fused_window`` on beside off. Returns the
+    paths' launches."""
+    paths = []
+    launches, fused = phase_serve(dict(CONFIG, fused_window=True),
+                                  FUSED_LAUNCHES, profile=True)
+    paths.append(launches)
+    launches, int8 = phase_serve(dict(CONFIG, int8_scores=True),
+                                 INT8_LAUNCHES)
+    paths.append(launches)
+    finite = torch.isfinite(logits_full)
+    # with the seeded weights the two classes' logits lie close: the
+    # foreground-background margin of phase 4's request, where both are
+    # finite, says how far a logit may move before the argmax flips
+    full = logits_full.float()
+    margin = (full[:, 1] - full[:, 0])[finite.all(dim=1)].abs()
+    for name, out in (("fused_window", fused), ("int8_scores", int8)):
+        check(torch.equal(torch.isfinite(out), finite),
+              f"serve {name}: finite masks differ")
+        agree = (out.float().argmax(1) == full.argmax(1)).float().mean().item()
+        diff = (out.float() - full)[finite].abs().max().item()
+        print(f"serve lam_b {name} against phase 4's request (bf16): argmax "
+              f"agreement {agree:.6f}, max |logit difference| {diff:.3g} "
+              f"(logit scale {full[finite].abs().max().item():.3g}; median "
+              f"|class margin| of phase 4's request "
+              f"{margin.median().item():.3g})")
+    rates = {}
+    for build, name, off, on in (
+            (build_vit_b, "vit_b", ENCODER_LAUNCHES, FUSED_LAUNCHES),
+            (build_vit_l, "vit_l", ENCODER_LAUNCHES_L, FUSED_LAUNCHES_L),
+            (build_vit_h, "vit_h", ENCODER_LAUNCHES_H, FUSED_LAUNCHES_H)):
+        launches, rate_off = phase_embed(build, name, off)
+        paths.append(launches)
+        launches, rate_on = phase_embed(build, name, on, fused_window=True)
+        paths.append(launches)
+        rates[name] = (rate_on, rate_off)
+    print("embed with fused_window on / off, images/s: " + ", ".join(
+        f"{name} {on:.2f} / {off:.2f}" for name, (on, off) in rates.items()))
+    return paths
+
+
+def phase_golden() -> None:
+    """The full-size golden fixtures through the port on the card (fp32),
+    at the cases' own tolerances; the SAM case with the fused windowed
+    block off and on."""
+    for name, options, expected in (
+            ("canonical_full_forward", {}, {}),
+            ("sam_released_full_forward", {}, ENCODER_LAUNCHES),
+            ("sam_released_full_forward", {"fused_window": True},
+             FUSED_LAUNCHES)):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        ours, ref = replay(name, "cuda", **options)
+        expect_launches(dict(fa.LAUNCHES), expected, f"golden {name}")
+        CASES[name].compare(ours, ref)
+        finite = np.isfinite(ref["strided"])
+        diff = np.abs(ours["strided"][finite] - ref["strided"][finite]).max()
+        agree = (ours["argmax"] == ref["argmax"]).mean()
+        print(f"golden {name}{''.join(' ' + o for o in options)}: fp32 on "
+              f"the card {time.perf_counter() - t0:.2f} s, max |port - "
+              f"reference| {diff:.3g} on the stored logits (scale "
+              f"{np.abs(ref['strided'][finite]).max():.3g}), argmax agreement "
+              f"{agree:.6f}; launches {nonzero(dict(fa.LAUNCHES))}")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     card = phase_card()
     kind = torch.cuda.get_device_name(0)
@@ -1653,21 +2064,26 @@ def main() -> None:
     phase_parity()
     # each main path is driven with the counters set to 0 just before it
     # and read just after; a kernel's launches are summed over them
-    paths = [phase_serve()]
+    launches, logits_b = phase_serve(profile=True)
+    paths = [launches]
     phase_step_parity()
     paths.append(phase_train())
     phase_vit_h_parity()
-    paths.append(phase_serve(CONFIG_H, ENCODER_LAUNCHES_H, profile=True))
+    paths.append(phase_serve(CONFIG_H, ENCODER_LAUNCHES_H, profile=True)[0])
     paths.append(phase_serve(CONFIG_L, ENCODER_LAUNCHES_L, shots=1,
-                             requests=1))
-    paths.append(phase_embed(build_vit_h, "vit_h", ENCODER_LAUNCHES_H))
-    paths.append(phase_embed(build_vit_l, "vit_l", ENCODER_LAUNCHES_L))
+                             requests=1)[0])
+    paths.append(phase_embed(build_vit_h, "vit_h", ENCODER_LAUNCHES_H)[0])
+    paths.append(phase_embed(build_vit_l, "vit_l", ENCODER_LAUNCHES_L)[0])
     phase_decode_parity()
     paths.append(phase_decode())
     phase_affinity_parity()
     paths.append(phase_affinity())
+    phase_options_parity()
+    paths += phase_options_serve(logits_b)
+    phase_golden()
     summary = []
-    for k in KERNELS + PACKED_KERNELS + VARIANT_KERNELS + [TWOWAY, FLASH]:
+    for k in (KERNELS + PACKED_KERNELS + VARIANT_KERNELS
+              + [TWOWAY, FLASH, FUSED_WINDOW, INT8]):
         stats = dict(kernel_stats[k["name"]])
         # the variants' main path is the microbench, counted in phase 2
         launches = stats.pop("launches", None)

@@ -141,6 +141,64 @@ __device__ __forceinline__ void begin_rows(Rows& st,
     for (int e = 0; e < 4; ++e) st.o[dn][e] = 0.f;
 }
 
+// The second half of a chunk, shared with the int8 score path
+// (relpos_global_int8.cu): s holds the chunk's scores in the log2 domain,
+// biased and masked, mx0 / mx1 their maxima over this thread's columns and
+// the running max. Runs the online softmax and adds P . V.
+__device__ __forceinline__ void softmax_pv(Rows& st, float (&s)[kChunk / 8][4],
+                                           float mx0, float mx1,
+                                           const __nv_bfloat16* v_s,
+                                           int lane) {
+  // a row lives in the 4 lanes of a quad; the chunk's first key is valid,
+  // so both maxima are finite
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float a0 = exp2f(st.m[0] - mx0), a1 = exp2f(st.m[1] - mx1);
+  st.m[0] = mx0;
+  st.m[1] = mx1;
+  float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kChunk / 8; ++nt) {
+    s[nt][0] = exp2f(s[nt][0] - mx0);
+    s[nt][1] = exp2f(s[nt][1] - mx0);
+    s[nt][2] = exp2f(s[nt][2] - mx1);
+    s[nt][3] = exp2f(s[nt][3] - mx1);
+    ls0 += s[nt][0] + s[nt][1];
+    ls1 += s[nt][2] + s[nt][3];
+  }
+  st.l[0] = st.l[0] * a0 + ls0;
+  st.l[1] = st.l[1] * a1 + ls1;
+#pragma unroll
+  for (int dn = 0; dn < kDh / 8; ++dn) {
+    st.o[dn][0] *= a0;
+    st.o[dn][1] *= a0;
+    st.o[dn][2] *= a1;
+    st.o[dn][3] *= a1;
+  }
+
+  // P . V: ldmatrix.trans gives the B fragments (k = key, n = column) of
+  // two 8-column tiles per call; lanes 0-7 / 8-15 / 16-23 / 24-31 address
+  // the rows of keys +0-7 / +8-15 of column tile 2dp / 2dp + 1
+  const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int vcol = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < kChunk / 16; ++kk) {
+    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < kDh / 16; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, v_s + (kk * 16 + vrow) * kLd + dp * 16 + vcol);
+      mma_bf16(st.o[2 * dp], pa, b[0], b[1]);
+      mma_bf16(st.o[2 * dp + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
 // One chunk of 64 keys: k_s / v_s point at the chunk's first key row,
 // kbase is that key's index in the sequence, r_w the warp's 16 fp32 r
 // rows (row stride rs), r = [rel_h (kh) | rel_w (kw)] x log2(e).
@@ -194,54 +252,7 @@ __device__ __forceinline__ void chunk(Rows& st, const __nv_bfloat16* k_s,
       mx0 = fmaxf(mx0, s[nt][b]);
       mx1 = fmaxf(mx1, s[nt][2 + b]);
     }
-  // a row lives in the 4 lanes of a quad; the chunk's first key is valid,
-  // so both maxima are finite
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  const float a0 = exp2f(st.m[0] - mx0), a1 = exp2f(st.m[1] - mx1);
-  st.m[0] = mx0;
-  st.m[1] = mx1;
-  float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < kChunk / 8; ++nt) {
-    s[nt][0] = exp2f(s[nt][0] - mx0);
-    s[nt][1] = exp2f(s[nt][1] - mx0);
-    s[nt][2] = exp2f(s[nt][2] - mx1);
-    s[nt][3] = exp2f(s[nt][3] - mx1);
-    ls0 += s[nt][0] + s[nt][1];
-    ls1 += s[nt][2] + s[nt][3];
-  }
-  st.l[0] = st.l[0] * a0 + ls0;
-  st.l[1] = st.l[1] * a1 + ls1;
-#pragma unroll
-  for (int dn = 0; dn < kDh / 8; ++dn) {
-    st.o[dn][0] *= a0;
-    st.o[dn][1] *= a0;
-    st.o[dn][2] *= a1;
-    st.o[dn][3] *= a1;
-  }
-
-  // P . V: ldmatrix.trans gives the B fragments (k = key, n = column) of
-  // two 8-column tiles per call; lanes 0-7 / 8-15 / 16-23 / 24-31 address
-  // the rows of keys +0-7 / +8-15 of column tile 2dp / 2dp + 1
-  const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int vcol = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < kChunk / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < kDh / 16; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, v_s + (kk * 16 + vrow) * kLd + dp * 16 + vcol);
-      mma_bf16(st.o[2 * dp], pa, b[0], b[1]);
-      mma_bf16(st.o[2 * dp + 1], pa, b[2], b[3]);
-    }
-  }
+  softmax_pv(st, s, mx0, mx1, v_s, lane);
 }
 
 // Normalizes and writes the warp's rows < n (bf16, row stride `stride`);

@@ -2,7 +2,9 @@
 ``labelanything_tpu/models/build_encoder.py``; reference:
 label_anything/models/build_encoder.py): ViT-B, ViT-L and ViT-H at the
 published widths of ``facebookresearch/segment-anything``. ViT-H's heads
-are 80 wide and run the packed rel-pos attention kernels."""
+are 80 wide and run the packed rel-pos attention kernels. ``fused_window``
+and ``int8_scores`` (off by default) are ``ImageEncoderViT``'s opt-in
+kernels."""
 
 from __future__ import annotations
 
@@ -29,7 +31,9 @@ PROMPT_EMBED_DIM = 256
 def _build_vit(config_name: str, project_last_hidden: bool = True,
                image_size: int = SAM_IMAGE_SIZE,
                dtype: torch.dtype = torch.float32,
-               remat: Union[bool, str, None] = False) -> ImageEncoderViT:
+               remat: Union[bool, str, None] = False,
+               fused_window: bool = False,
+               int8_scores: bool = False) -> ImageEncoderViT:
     cfg = vit_configs[config_name]
     return ImageEncoderViT(
         img_size=image_size, patch_size=SAM_PATCH_SIZE,
@@ -37,7 +41,8 @@ def _build_vit(config_name: str, project_last_hidden: bool = True,
         num_heads=cfg["num_heads"], mlp_ratio=4, out_chans=PROMPT_EMBED_DIM,
         qkv_bias=True, window_size=14,
         global_attn_indexes=cfg["global_attn_indexes"],
-        project_last_hidden=project_last_hidden, dtype=dtype, remat=remat)
+        project_last_hidden=project_last_hidden, dtype=dtype, remat=remat,
+        fused_window=fused_window, int8_scores=int8_scores)
 
 
 def build_vit_h(**kwargs) -> ImageEncoderViT:

@@ -103,14 +103,17 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
                class_fusion: str = "sum",
                transformer_keys_are_images: bool = True,
                transformer_feature_size: Optional[int] = None,
-               apply_masks: bool = False) -> Lam:
+               apply_masks: bool = False, fused_window: bool = False,
+               int8_scores: bool = False) -> Lam:
     """Architecture factory (reference: build_lam.py:96-235).
     ``remat_encoder`` is the image encoder's ``remat``. ``structured_fusion``,
     ``mask_factor`` and ``shared_keys`` choose among exact forms of the
     prompt encoder's fusion (the JAX package's environment switches):
     the first two are ``PromptImageEncoder``'s, the last its transformer's
     (``ops/twoway_shared.py`` instead of expanded keys). ``few_type`` and
-    the four arguments after it go to :func:`build_mask_decoder`."""
+    the four arguments after it go to :func:`build_mask_decoder`.
+    ``fused_window`` and ``int8_scores`` are the image encoder's opt-in
+    kernels (``models/image_encoder.py``), off by default."""
     if fusion_transformer != "TwoWayTransformer":
         raise NotImplementedError(f"fusion transformer {fusion_transformer!r} "
                                   f"is not ported")
@@ -124,10 +127,13 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
 
     vit = None
     if use_vit and build_vit is not None:
-        # passed on only when set: a custom encoder factory need not know it
-        remat = {"remat": remat_encoder} if remat_encoder else {}
+        # passed on only when set: a custom encoder factory need not know
+        # them
+        options = dict(remat=remat_encoder, fused_window=fused_window,
+                       int8_scores=int8_scores)
         vit = build_vit(project_last_hidden=use_vit_sam_neck,
-                        image_size=image_size, dtype=dtype, **remat)
+                        image_size=image_size, dtype=dtype,
+                        **{k: v for k, v in options.items() if v})
 
     if class_encoder is not None:
         if class_encoder["name"] != "RandomMatrixEncoder":

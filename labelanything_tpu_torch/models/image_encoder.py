@@ -10,6 +10,19 @@ other head width (ViT-H: 80): both through ``flash_attention_relpos_packed``
 on a token-major view of the qkv projection. Windows are zero-padded before
 the qkv projection, so pad tokens carry qkv = bias and are attended, as in
 the reference.
+
+Two opt-in builder arguments, both off by default, take the JAX package's
+opt-in kernels:
+
+* ``fused_window``: every windowed block's attention half (pad, qkv, window
+  attention, projection, residual) goes through
+  :func:`..ops.fused_window.fused_window_attention`, one kernel a block on
+  the card for the shapes ``fused_window_ok`` admits (heads 64 or 80 wide),
+  its plain twin on the CPU; a shape it refuses takes the unfused path,
+  which computes the same function. The parameters are the same modules'.
+* ``int8_scores``: the global blocks of 64-wide heads take their q . k
+  scores in int8 where the JAX rule sends the flag
+  (``ops.flash_attention.int8_scores_ok``: 64 x 64 at 1024 px).
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention as fa
+from ..ops import fused_window as fw
 from .common import Conv2d, LayerNorm, LayerNorm2d, Linear, MLPBlock, gelu
 
 
@@ -87,14 +101,17 @@ class PatchEmbed(nn.Module):
 class ViTAttention(nn.Module):
     """Multi-head attention with decomposed rel-pos (reference:
     image_encoder.py:200-255). ``windowed`` selects the windowed kernel of
-    the 64-wide heads; the packed function picks its own by token count."""
+    the 64-wide heads; the packed function picks its own by token count.
+    ``int8_scores`` asks a global block of 64-wide heads for int8 scores."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
                  input_size: Tuple[int, int], windowed: bool,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 int8_scores: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.windowed = windowed
+        self.int8_scores = int8_scores
         self.compute_dtype = dtype
         head_dim = dim // num_heads
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias, dtype=dtype)
@@ -116,10 +133,14 @@ class ViTAttention(nn.Module):
         r = torch.cat([rel_h, rel_w], dim=-1) * fa.LOG2E
         scale = head_dim ** -0.5
         if head_dim == fa.KERNEL_HEAD_DIM:
-            attend = (fa.flash_attention_relpos_lanes_batched if self.windowed
-                      else fa.flash_attention_relpos_lanes)
-            out = attend(qkv, r.reshape(b, h * w, heads * (h + w)), scale,
-                         (h, w), heads)
+            r = r.reshape(b, h * w, heads * (h + w))
+            if self.windowed:
+                out = fa.flash_attention_relpos_lanes_batched(
+                    qkv, r, scale, (h, w), heads)
+            else:
+                out = fa.flash_attention_relpos_lanes(
+                    qkv, r, scale, (h, w), heads,
+                    int8_scores=self.int8_scores)
         else:
             # the packed kernels take strides: they read the projection and
             # r as they lie and write the output token-major, so the views
@@ -130,27 +151,70 @@ class ViTAttention(nn.Module):
                 (h, w), heads).permute(0, 2, 1, 3)
         return self.proj(out.reshape(b, h, w, dim))
 
+    def fused_window(self, xn: torch.Tensor, residual: torch.Tensor,
+                     ws: int) -> torch.Tensor:
+        """``residual`` + the windowed attention of the normed map ``xn``
+        (B, H, W, C), projection included, in one call of
+        :func:`..ops.fused_window.fused_window_attention` (the JAX
+        ``ViTAttention._fused_window``): both padded to window multiples
+        after ``norm1``, qkv of the padded map, the factored bias from the
+        window's rel-pos rows; the pad cropped off the result."""
+        b, h, w, dim = xn.shape
+        heads = self.num_heads
+        dt = self.compute_dtype
+        pad_h, pad_w = (ws - h % ws) % ws, (ws - w % ws) % ws
+        if pad_h or pad_w:
+            xn = F.pad(xn, (0, 0, 0, pad_w, 0, pad_h))
+            residual = F.pad(residual, (0, 0, 0, pad_w, 0, pad_h))
+        qkv = self.qkv(xn)                               # (B, Hp, Wp, 3C)
+        r = fw.window_bias(qkv[..., :dim],
+                           get_rel_pos(ws, ws, self.rel_pos_h).to(dt),
+                           get_rel_pos(ws, ws, self.rel_pos_w).to(dt),
+                           heads, ws)
+        out = fw.fused_window_attention(
+            residual.to(dt).contiguous(), qkv, r, self.proj.weight.to(dt),
+            self.proj.bias.to(dt), (dim // heads) ** -0.5, heads, ws)
+        return out[:, :h, :w]
+
 
 class ViTBlock(nn.Module):
     """Windowed or global transformer block (reference:
-    image_encoder.py:134-197)."""
+    image_encoder.py:134-197). With ``fused_window`` a windowed block's
+    attention half takes :meth:`ViTAttention.fused_window` on the CPU and
+    wherever ``ops.fused_window.fused_window_ok`` admits the call on the
+    card."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, window_size: int,
-                 input_size: Tuple[int, int], dtype: torch.dtype = torch.float32):
+                 input_size: Tuple[int, int], dtype: torch.dtype = torch.float32,
+                 fused_window: bool = False, int8_scores: bool = False):
         super().__init__()
         self.window_size = window_size
+        self.fused = fused_window and window_size > 0
         self.norm1 = LayerNorm(dim, eps=1e-6, dtype=dtype)
         self.attn = ViTAttention(
             dim, num_heads, qkv_bias,
             input_size if window_size == 0 else (window_size, window_size),
-            windowed=window_size > 0, dtype=dtype)
+            windowed=window_size > 0, dtype=dtype, int8_scores=int8_scores)
         self.norm2 = LayerNorm(dim, eps=1e-6, dtype=dtype)
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio), act=gelu, dtype=dtype)
+
+    def _takes_fused(self, x: torch.Tensor) -> bool:
+        if not self.fused:
+            return False
+        if x.device.type != "cuda":
+            return True
+        dim = x.shape[-1]
+        heads = self.attn.num_heads
+        return fw.fused_window_ok(x.device, self.attn.compute_dtype, heads,
+                                  dim // heads, self.window_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
         x = self.norm1(x)
+        if self._takes_fused(x):
+            x = self.attn.fused_window(x, shortcut, self.window_size)
+            return x + self.mlp(self.norm2(x))
         if self.window_size > 0:
             h, w = x.shape[1], x.shape[2]
             x, pad_hw = window_partition(x, self.window_size)
@@ -171,7 +235,11 @@ class ImageEncoderViT(nn.Module):
     True or "full" reruns each block's forward in the backward
     (``torch.utils.checkpoint``), which trades one extra forward for the
     activation memory. The JAX package's partial policies "attn" and "dots"
-    are not ported."""
+    are not ported.
+
+    ``fused_window`` and ``int8_scores`` (both off by default) take the
+    JAX package's two opt-in kernels, as the module docstring says; they
+    change no parameter."""
 
     def __init__(self, img_size: int = 1024, patch_size: int = 16,
                  in_chans: int = 3, embed_dim: int = 768, depth: int = 12,
@@ -181,7 +249,8 @@ class ImageEncoderViT(nn.Module):
                  global_attn_indexes: Sequence[int] = (),
                  project_last_hidden: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 remat: Union[bool, str, None] = False):
+                 remat: Union[bool, str, None] = False,
+                 fused_window: bool = False, int8_scores: bool = False):
         super().__init__()
         if remat in ("attn", "dots"):
             raise NotImplementedError(
@@ -196,7 +265,8 @@ class ImageEncoderViT(nn.Module):
         self.blocks = nn.ModuleList(
             ViTBlock(embed_dim, num_heads, mlp_ratio, qkv_bias,
                      0 if i in global_attn_indexes else window_size,
-                     (grid, grid), dtype=dtype)
+                     (grid, grid), dtype=dtype, fused_window=fused_window,
+                     int8_scores=int8_scores)
             for i in range(depth))
         self.neck: Optional[nn.Sequential] = None
         if project_last_hidden:

@@ -27,7 +27,7 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 SOURCES = ("relpos_global.cu", "relpos_window.cu", "relpos_global_bwd.cu",
            "relpos_window_bwd.cu", "relpos_packed.cu",
            "relpos_packed_variants.cu", "fused_twoway.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "fused_window.cu", "relpos_global_int8.cu")
 HEADERS = ("relpos_common.cuh", "relpos_mma.cuh", "relpos_bwd.cuh",
            "relpos_packed.cuh", "fused_twoway_fp32.cuh",
            "fused_twoway_tc.cuh")
@@ -102,6 +102,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                        ctypes.c_float, i,
                                        ctypes.POINTER(ctypes.c_longlong), p]
     lib.la_flash_attention.restype = i
+    # x qkv r w_proj b_proj out; b hp wp heads dh ws qscale bf16
+    # r_strides[3] stream
+    lib.la_fused_window.argtypes = [p] * 6 + [i] * 6 + [
+        ctypes.c_float, i, ctypes.POINTER(ctypes.c_longlong), p]
+    lib.la_fused_window.restype = i
+    # qkv r out; b n heads kh kw qscale bf16 stream
+    lib.la_relpos_global_int8.argtypes = [p, p, p, i, i, i, i, i,
+                                          ctypes.c_float, i, p]
+    lib.la_relpos_global_int8.restype = i
     lib.la_error_string.argtypes = [i]
     lib.la_error_string.restype = ctypes.c_char_p
     return lib

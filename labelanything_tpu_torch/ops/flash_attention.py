@@ -8,7 +8,13 @@ in CUDA C++ for Hopper replace the TPU's Pallas kernels. For heads 64 wide
 * :func:`flash_attention_relpos_lanes` - global blocks (N = 64 x 64 at
   1024 px): forward ``csrc/relpos_global.cu`` (one block per (image, head,
   64-row query tile), online softmax), backward
-  ``csrc/relpos_global_bwd.cu``;
+  ``csrc/relpos_global_bwd.cu``. With ``int8_scores=True``, where the JAX
+  package's rule sends its ``LA_TPU_INT8_SCORES`` flag
+  (:func:`int8_scores_ok`), the forward takes the q . k scores in int8
+  (``csrc/relpos_global_int8.cu``; plain twin
+  :func:`relpos_attention_int8_plain`); its gradient is the full-precision
+  one, with D = rowsum(dO . O) from the int8 output, as the JAX backward
+  takes it;
 * :func:`flash_attention_relpos_lanes_batched` - windowed blocks
   (N = 14 x 14): forward ``csrc/relpos_window.cu`` (one block per (window,
   head), K/V resident in shared memory), backward
@@ -79,7 +85,12 @@ LAUNCHES: Dict[str, int] = {"relpos_global": 0, "relpos_window": 0,
                             # the whole two-way transformer (ops/fused_twoway)
                             "fused_twoway": 0,
                             # plain attention without a bias
-                            "flash": 0}
+                            "flash": 0,
+                            # the int8 score branch of the global kernel
+                            "relpos_global_int8": 0,
+                            # a windowed block's attention half
+                            # (ops/fused_window)
+                            "fused_window": 0}
 
 # head width of the token-major (lanes) kernels; other widths go through
 # flash_attention_relpos_packed
@@ -155,6 +166,63 @@ def relpos_attention_plain(qkv: torch.Tensor, r: torch.Tensor, scale: float,
 
     out = _attend(split(qkv[..., :c]), split(qkv[..., c:2 * c]),
                   split(qkv[..., 2 * c:]), split(r), scale, grid_hw)
+    return out.transpose(1, 2).reshape(b, n, c)
+
+
+def vpu_bias_ok(kh: int, kw: int, n: int, block_k: int) -> bool:
+    """The JAX package's precondition of its VPU bias loop, where the int8
+    score branch lives (copied, ``flash_attention.py:236``)."""
+    return kh * kw == n and block_k % kw == 0 and kw >= 8
+
+
+def int8_scores_ok(grid_hw: Tuple[int, int], n: int) -> bool:
+    """Whether the int8 score flag takes effect for a global block of n
+    tokens on a (kh, kw) key grid, by the JAX package's rule: the global
+    blocks of ViT-B and ViT-L at 1024 px (64 x 64) qualify, a 48 x 48 grid
+    does not."""
+    kh, kw = grid_hw
+    # the key block of the JAX _pick_blocks_long; its query block plays no
+    # part in the rule
+    block_k = 256 if n % 256 == 0 else n
+    return vpu_bias_ok(kh, kw, n, block_k)
+
+
+def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 codes of each row of fp32 ``x`` (as fp32 integers)
+    and the rows' scales max|x| / 127, as the JAX ``_bias_loop_vpu``
+    quantizes: round half to even, the scale held above 1e-30. Both
+    divisions are true divisions by tensors: on the card a Python-scalar
+    divisor becomes a product with its rounded reciprocal, which moves a
+    scale by an ulp and can flip a code."""
+    m = x.abs().amax(dim=-1, keepdim=True)
+    s = m / torch.full_like(m, 127.0)
+    return torch.round(x / torch.clamp(s, min=1e-30)), s
+
+
+def relpos_attention_int8_plain(qkv: torch.Tensor, r: torch.Tensor,
+                                scale: float, grid_hw: Tuple[int, int],
+                                heads: int) -> torch.Tensor:
+    """:func:`relpos_attention_plain` with the q . k scores taken in int8
+    (the JAX ``_bias_loop_vpu(int8_scores=True)``): q is fp32(q) * scale *
+    log2(e) and k fp32(k), each quantized per row and head; the score is
+    float(q8 . k8) * sq * sk, exact in fp32 (64 * 127^2 < 2^24), plus the
+    bias in the log2 domain; softmax by exp2, P cast to v's dtype."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    kh, _ = grid_hw
+
+    def split(x):
+        return x.reshape(b, n, heads, -1).transpose(1, 2)
+
+    q8, sq = _quantize_rows(split(qkv[..., :c]).float() * (scale * LOG2E))
+    k8, sk = _quantize_rows(split(qkv[..., c:2 * c]).float())
+    v = split(qkv[..., 2 * c:])
+    rb = split(r).float()
+    s = torch.matmul(q8, k8.transpose(-1, -2)) * (sq * sk.transpose(-1, -2))
+    s += (rb[..., :kh, None] + rb[..., None, kh:]).reshape(s.shape)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    p /= p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(v.dtype), v)
     return out.transpose(1, 2).reshape(b, n, c)
 
 
@@ -293,6 +361,29 @@ def _launch(kernel: str, qkv: torch.Tensor, r: torch.Tensor, scale: float,
     return out, lse
 
 
+def _launch_int8(qkv: torch.Tensor, r: torch.Tensor, scale: float,
+                 grid_hw: Tuple[int, int], heads: int) -> torch.Tensor:
+    """Kernel ``la_relpos_global_int8``: out (B, N, C). q's scale is
+    rounded to fp32 here, as the plain twin rounds it, so both quantize q
+    to the same codes."""
+    _check_launch("relpos_global_int8", qkv=qkv, r=r)
+    from . import _build
+
+    lib = _build.load()
+    b, n, c3 = qkv.shape
+    kh, kw = grid_hw
+    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.la_relpos_global_int8(
+            qkv.data_ptr(), r.data_ptr(), out.data_ptr(), b, n, heads, kh, kw,
+            ctypes.c_float(scale * LOG2E), int(qkv.dtype == torch.bfloat16),
+            stream)
+    _build.check(lib, err, "la_relpos_global_int8")
+    LAUNCHES["relpos_global_int8"] += 1
+    return out
+
+
 def _launch_bwd(kernel: str, qkv: torch.Tensor, r: torch.Tensor,
                 out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
                 scale: float, grid_hw: Tuple[int, int], heads: int
@@ -324,20 +415,30 @@ def _launch_bwd(kernel: str, qkv: torch.Tensor, r: torch.Tensor,
 
 class RelposAttention(torch.autograd.Function):
     """``(qkv, r) -> out`` with the kernels' backward. ``kernel`` names the
-    pair of kernels, ``relpos_global`` or ``relpos_window``. CPU tensors
-    (and any tensor inside :func:`plain_attention`) take the plain twins."""
+    pair of kernels, ``relpos_global`` or ``relpos_window``; ``int8`` takes
+    the global forward with int8 scores, whose backward is the full-precision
+    one: it reads the log-sum-exp of the full-precision forward kernel, run
+    again for it when a gradient is wanted, and the int8 output for
+    rowsum(dO . O). CPU tensors (and any tensor inside
+    :func:`plain_attention`) take the plain twins."""
 
     @staticmethod
-    def forward(ctx, qkv, r, scale, grid_hw, heads, kernel):
+    def forward(ctx, qkv, r, scale, grid_hw, heads, kernel, int8=False):
         ctx.args = (scale, tuple(grid_hw), heads)
         ctx.kernel = kernel
         ctx.plain = _plain_requested or qkv.device.type == "cpu"
+        want_lse = any(ctx.needs_input_grad[:2])
         lse = None
         if ctx.plain:
-            out = relpos_attention_plain(qkv, r, *ctx.args)
+            plain = relpos_attention_int8_plain if int8 else \
+                relpos_attention_plain
+            out = plain(qkv, r, *ctx.args)
+        elif int8:
+            out = _launch_int8(qkv, r, *ctx.args)
+            if want_lse:
+                _, lse = _launch(kernel, qkv, r, *ctx.args, want_lse=True)
         else:
-            out, lse = _launch(kernel, qkv, r, *ctx.args,
-                               want_lse=any(ctx.needs_input_grad[:2]))
+            out, lse = _launch(kernel, qkv, r, *ctx.args, want_lse=want_lse)
         ctx.save_for_backward(qkv, r, out, lse)
         return out
 
@@ -351,17 +452,21 @@ class RelposAttention(torch.autograd.Function):
         else:
             dqkv, dr = _launch_bwd(ctx.kernel, qkv, r, out, dout, lse,
                                    *ctx.args)
-        return dqkv, dr, None, None, None, None
+        return dqkv, dr, None, None, None, None, None
 
 
 def flash_attention_relpos_lanes(qkv: torch.Tensor, r: torch.Tensor,
                                  scale: float, grid_hw: Tuple[int, int],
-                                 heads: int) -> torch.Tensor:
+                                 heads: int, int8_scores: bool = False
+                                 ) -> torch.Tensor:
     """Global-block rel-pos attention (kernels ``la_relpos_global`` and
-    ``la_relpos_global_bwd``)."""
+    ``la_relpos_global_bwd``; with ``int8_scores``, where
+    :func:`int8_scores_ok` admits the grid, ``la_relpos_global_int8``
+    forward)."""
     _check(qkv, r, grid_hw, heads)
+    int8 = int8_scores and int8_scores_ok(grid_hw, qkv.shape[1])
     return RelposAttention.apply(qkv, r, scale, grid_hw, heads,
-                                 "relpos_global")
+                                 "relpos_global", int8)
 
 
 def flash_attention_relpos_lanes_batched(qkv: torch.Tensor, r: torch.Tensor,

@@ -15,8 +15,9 @@ CUDA kernel (``csrc/fused_twoway.cu``, one thread block per instance).
 * :func:`twoway_params` collects a ``TwoWayTransformer`` module's weights
   into the flat tuple both take (the module's own parameters, in torch's
   (out, in) layout; no copy).
-* :func:`fused_twoway_ok` is the one rule that says which calls the kernel
-  is compiled for; a caller routes by it, never by a failed build or launch.
+* :func:`fused_twoway_compiled` says which calls the kernel is compiled for
+  (fp32 and bf16); :func:`fused_twoway_ok`, the route rule, admits the
+  bf16 ones: a caller routes by it, never by a failed build or launch.
 * :func:`fused_twoway_transformer` is a ``torch.autograd.Function``: kernel
   forward on a CUDA tensor (or it raises), plain forward on a CPU tensor or
   inside :func:`..flash_attention.plain_attention`; the backward recomputes
@@ -171,16 +172,15 @@ def twoway_plain(keys: torch.Tensor, queries: torch.Tensor,
     return queries, keys
 
 
-def fused_twoway_ok(device: torch.device, dtype: torch.dtype, tokens: int,
-                    dim: int, heads: int, mlp_dim: int, downsample: int,
-                    act: Callable = F.relu) -> bool:
-    """Whether :func:`fused_twoway_transformer` takes a call on the card:
-    a pure function of device, dtype and shape. The kernel is compiled for
-    the decode path's transformer: width 256, 8 heads, cross-attention
-    downsample 2, ReLU, an MLP width that is a multiple of 32 up to 2048,
-    and at most 8 tokens an instance (the token side of its tensor-core
-    tiles), in fp32 or bf16, on a CUDA device. Anything else goes the
-    module path."""
+def fused_twoway_compiled(device: torch.device, dtype: torch.dtype,
+                          tokens: int, dim: int, heads: int, mlp_dim: int,
+                          downsample: int, act: Callable = F.relu) -> bool:
+    """Whether the kernel is compiled for a call: a pure function of
+    device, dtype and shape. It is compiled for the decode path's
+    transformer: width 256, 8 heads, cross-attention downsample 2, ReLU, an
+    MLP width that is a multiple of 32 up to 2048, and at most 8 tokens an
+    instance (the token side of its tensor-core tiles), in fp32 or bf16, on
+    a CUDA device."""
     return (device.type == "cuda"
             and dtype in (torch.float32, torch.bfloat16)
             and dim == KERNEL_DIM and heads == KERNEL_HEADS
@@ -188,6 +188,19 @@ def fused_twoway_ok(device: torch.device, dtype: torch.dtype, tokens: int,
             and 1 <= tokens <= KERNEL_MAX_TOKENS
             and mlp_dim % 32 == 0 and 32 <= mlp_dim <= KERNEL_MAX_MLP
             and act is F.relu)
+
+
+def fused_twoway_ok(device: torch.device, dtype: torch.dtype, tokens: int,
+                    dim: int, heads: int, mlp_dim: int, downsample: int,
+                    act: Callable = F.relu) -> bool:
+    """Whether ``TwoWayTransformer`` routes a call to the kernel on the
+    card: what :func:`fused_twoway_compiled` admits, in bf16 only. The fp32
+    kernel runs on the CUDA cores and is about nine times slower than the
+    module path on the tensor cores, so fp32 goes the module path; the fp32
+    kernel stays for parity checks, which call it directly. Anything else
+    goes the module path too."""
+    return dtype == torch.bfloat16 and fused_twoway_compiled(
+        device, dtype, tokens, dim, heads, mlp_dim, downsample, act)
 
 
 def pack_params(params: Sequence[torch.Tensor], dtype: torch.dtype
@@ -248,12 +261,12 @@ def fused_twoway_packed(keys: torch.Tensor, queries: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if not fused_twoway_ok(keys.device, keys.dtype, n, d, heads, mlp_dim,
-                           downsample, act):
+    if not fused_twoway_compiled(keys.device, keys.dtype, n, d, heads,
+                                 mlp_dim, downsample, act):
         raise ValueError(
             f"the fused_twoway kernel is not compiled for {keys.dtype} "
             f"width {d}, {heads} heads, downsample {downsample}, MLP "
-            f"{mlp_dim}, {n} tokens (see fused_twoway_ok)")
+            f"{mlp_dim}, {n} tokens (see fused_twoway_compiled)")
     if not 1 <= g <= _MAX_GRID_X or s < 1:
         raise ValueError(f"{g} instances of {s} image tokens")
     from . import _build

@@ -3,8 +3,11 @@ lanes kernels, ViT-H's packed kernels, the fused TwoWayTransformer at the
 episode-decode path's two call sites: 96 prompt-encoder instances and 16
 mask-decoder instances of 900 image tokens against 6 tokens, bf16, and the
 plain flash kernel at the affinity decoder's call: 6 x 8 heads of 4096
-queries against 8192 keys, 32 wide, bf16 and fp32), for comparing two
-checkouts on one card.
+queries against 8192 keys, 32 wide, bf16 and fp32; the global kernel with
+int8 scores beside it at ViT-B's global block; the fused windowed block at
+one 1024-px image's windowed block of ViT-B, ViT-L and ViT-H, beside the
+unfused kernel path that it replaces), for comparing two checkouts on one
+card.
 
     python labelanything_tpu_torch/ops/time_kernels.py [--root DIR] [--label X]
 
@@ -132,6 +135,99 @@ def time_flash(opts) -> None:
             call_ms_median=per_call, card=torch.cuda.get_device_name(0))))
 
 
+# the fused windowed block: heads, head width (one 1024-px image: 64 x 64
+# padded to 70 x 70, 25 windows of 14 x 14)
+FUSED_WINDOW_SHAPES = {"vit_b": (12, 64), "vit_l": (16, 64), "vit_h": (16, 80)}
+
+
+def unfused_window_call(x, qkv, r, w, bias, heads: int, ws: int):
+    """A call of the path that K8 replaces, on K8's operands (x, qkv, r as
+    ``fused_window_attention`` takes them, map sides multiples of ``ws``):
+    the window partition of a map of x's width, the windowed attention
+    kernel (K2 for 64-wide heads, the packed K5 otherwise), the output
+    projection, the unpartition and the residual add. The qkv projection
+    and the bias einsums are common to both paths; qkv and r are
+    partitioned once here, outside the call."""
+    import torch.nn.functional as F
+
+    from labelanything_tpu_torch.models.image_encoder import (
+        window_partition, window_unpartition)
+    from labelanything_tpu_torch.ops import flash_attention as fa
+
+    b, hp, wp, c = x.shape
+    dh, t = c // heads, ws * ws
+    qkv_w = window_partition(qkv, ws)[0].reshape(-1, t, 3 * c)
+    r_w = window_partition(r.permute(0, 2, 3, 1, 4).reshape(
+        b, hp, wp, heads * 2 * ws), ws)[0].reshape(-1, t, heads * 2 * ws)
+    g = qkv_w.shape[0]
+
+    def call():
+        window_partition(x, ws)      # the normed map's partition copy
+        if dh == fa.KERNEL_HEAD_DIM:
+            out = fa.flash_attention_relpos_lanes_batched(
+                qkv_w, r_w, dh ** -0.5, (ws, ws), heads)
+        else:
+            out = fa.flash_attention_relpos_packed(
+                qkv_w.view(g, t, 3 * heads, dh).permute(0, 2, 1, 3),
+                r_w.view(g, t, heads, 2 * ws).permute(0, 2, 1, 3),
+                dh ** -0.5, (ws, ws), heads).permute(0, 2, 1, 3)
+        out = F.linear(out.reshape(g, ws, ws, c), w, bias)
+        return x + window_unpartition(out, ws, (hp, wp), (hp, wp))
+
+    return call
+
+
+def time_fused_window(opts) -> None:
+    """K8 on one image's windowed block (bf16) beside the path it replaces
+    (:func:`unfused_window_call`) on the same operands."""
+    from labelanything_tpu_torch.ops import fused_window as fw
+
+    ws, hp = 14, 70
+    rng = np.random.default_rng(1)
+    for model, (heads, dh) in FUSED_WINDOW_SHAPES.items():
+        c = heads * dh
+        f = lambda *s: torch.from_numpy(rng.standard_normal(
+            s, np.float32)).cuda().bfloat16()
+        x, qkv = f(1, hp, hp, c), f(1, hp, hp, 3 * c)
+        r = (0.5 * f(1, hp, hp, heads, 2 * ws)).permute(0, 3, 1, 2, 4)
+        w, bias = f(c, c) / c ** 0.5, f(c)
+        rows = {"fused_window": lambda: fw.fused_window_attention(
+                    x, qkv, r, w, bias, dh ** -0.5, heads, ws),
+                "fused_window_unfused_path": unfused_window_call(
+                    x, qkv, r, w, bias, heads, ws)}
+        for name, call in rows.items():
+            median, least, per_call = device_and_call_ms(
+                call, opts.launches, opts.repeats)
+            print(json.dumps(dict(
+                label=opts.label, kernel=name, model=model, heads=heads,
+                head_dim=dh, windows=25, device_ms_per_launch=median,
+                device_ms_min=least, call_ms_median=per_call,
+                card=torch.cuda.get_device_name(0))))
+
+
+def time_int8(opts) -> None:
+    """The global kernel with int8 scores beside the bf16 one, at ViT-B's
+    global block (one image, 12 heads, 64 x 64 tokens)."""
+    from labelanything_tpu_torch.ops import flash_attention as fa
+
+    b, (kh, kw), heads, dh = SHAPES["relpos_global"]
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (b, kh * kw, 3 * heads * dh), np.float32)).cuda().bfloat16()
+    r = torch.from_numpy(0.5 * rng.standard_normal(
+        (b, kh * kw, heads * (kh + kw)), np.float32)).cuda().bfloat16()
+    for name, int8 in (("relpos_global_int8", True),
+                       ("relpos_global", False)):
+        median, least, per_call = device_and_call_ms(
+            lambda: fa.flash_attention_relpos_lanes(
+                qkv, r, dh ** -0.5, (kh, kw), heads, int8_scores=int8),
+            opts.launches, opts.repeats)
+        print(json.dumps(dict(
+            label=opts.label, kernel=name, batch=b, grid=[kh, kw],
+            device_ms_per_launch=median, device_ms_min=least,
+            call_ms_median=per_call, card=torch.cuda.get_device_name(0))))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=".")
@@ -172,6 +268,10 @@ def main() -> None:
         time_fused_twoway(opts)
     if hasattr(fa, "flash_attention"):
         time_flash(opts)
+    if os.path.exists(os.path.join(
+            opts.root, "labelanything_tpu_torch/ops/fused_window.py")):
+        time_int8(opts)
+        time_fused_window(opts)
 
 
 if __name__ == "__main__":

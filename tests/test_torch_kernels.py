@@ -475,3 +475,146 @@ def test_flash_kernel_rejects_bad_input(cuda):
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), k.half(), v.half(), 0.1)
     assert fa.LAUNCHES["flash"] == before
+
+
+# ---- the fused windowed block (K8) ----------------------------------------
+
+def _fused_window_inputs(b, hp, wp, heads, dh, ws, dtype, device, seed=0):
+    """x, qkv, r (a view of a (B, Hp, Wp, heads, 2 ws) tensor, as the
+    encoder builds it), w_proj (C_out, C_in), b_proj."""
+    rng = np.random.default_rng(seed)
+    c = heads * dh
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    r = (0.5 * f(b, hp, wp, heads, 2 * ws)).permute(0, 3, 1, 2, 4)
+    return [t.to(device, dtype) for t in (
+        f(b, hp, wp, c), f(b, hp, wp, 3 * c), r, f(c, c) / c ** 0.5,
+        0.1 * f(c))]
+
+
+FUSED_WINDOW_CASES = [
+    # (b, hp, wp, heads, dh, ws)
+    (1, 70, 70, 12, 64, 14),    # ViT-B serving: 25 windows, 64 padded to 70
+    (1, 70, 70, 16, 80, 14),    # ViT-H
+    (2, 9, 12, 4, 64, 3),       # small padded windows, several images
+    (1, 32, 16, 4, 80, 16),     # the 256-token maximum
+]
+
+
+@pytest.mark.parametrize("b,hp,wp,heads,dh,ws", FUSED_WINDOW_CASES)
+def test_fused_window_matches_plain(cuda, b, hp, wp, heads, dh, ws):
+    """K8 against ``fused_window_plain``: fp32 within 1e-4, bf16 by the 4x
+    rule; r as a strided view and contiguous give the same bits."""
+    from labelanything_tpu_torch.ops import fused_window as fw
+
+    args = (dh ** -0.5, heads, ws)
+    inputs = _fused_window_inputs(b, hp, wp, heads, dh, ws, torch.float32,
+                                  cuda)
+    before = fa.LAUNCHES["fused_window"]
+    out = fw.fused_window_attention(*inputs, *args)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["fused_window"] == before + 1
+    torch.testing.assert_close(out, fw.fused_window_plain(*inputs, *args),
+                               rtol=1e-4, atol=1e-4)
+    low = [t.bfloat16() for t in inputs]
+    out_b = fw.fused_window_attention(*low, *args)
+    ok, diff, floor = _bf16_ok(
+        out_b, fw.fused_window_plain(*low, *args),
+        fw.fused_window_plain(*[t.float() for t in low], *args))
+    assert out_b.dtype == torch.bfloat16 and ok, (diff, floor)
+    low[2] = low[2].contiguous()
+    assert torch.equal(fw.fused_window_attention(*low, *args), out_b)
+
+
+def test_fused_window_gradient_and_plain_by_name(cuda):
+    """Kernel forward, the twin recomputed for the backward: autograd
+    through the twin's gradients (fp32); inside ``plain_attention()`` no
+    launch."""
+    from labelanything_tpu_torch.ops import fused_window as fw
+
+    b, hp, wp, heads, dh, ws = FUSED_WINDOW_CASES[2]
+    args = (dh ** -0.5, heads, ws)
+    inputs = _fused_window_inputs(b, hp, wp, heads, dh, ws, torch.float32,
+                                  cuda, seed=1)
+    ct = torch.randn(inputs[0].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(2))
+    grads = []
+    for fn in (fw.fused_window_attention, fw.fused_window_plain):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        grads.append(torch.autograd.grad(fn(*leaves, *args), leaves, ct))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    before = fa.LAUNCHES["fused_window"]
+    with fa.plain_attention():
+        fw.fused_window_attention(*inputs, *args)
+    assert fa.LAUNCHES["fused_window"] == before
+
+
+def test_fused_window_rejects_bad_input(cuda):
+    """A head width or model width the kernel is not compiled for, or a
+    non-contiguous operand, raise on the card; nothing reaches the twin."""
+    from labelanything_tpu_torch.ops import fused_window as fw
+
+    before = fa.LAUNCHES["fused_window"]
+    inputs = _fused_window_inputs(1, 6, 6, 2, 48, 3, torch.float32, cuda)
+    with pytest.raises(ValueError, match="not compiled for"):
+        fw.fused_window_attention(*inputs, 48 ** -0.5, 2, 3)
+    inputs = _fused_window_inputs(1, 6, 6, 2, 64, 3, torch.float32, cuda)
+    wide = torch.cat([inputs[1], inputs[1]], -1)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        fw.fused_window_attention(inputs[0], wide, *inputs[2:], 0.125, 2, 3)
+    assert fa.LAUNCHES["fused_window"] == before
+
+
+# ---- the int8 score branch of the global kernel (K1) -----------------------
+
+INT8_CASES = [
+    # (b, grid_hw, heads): ViT-B's global block; the JAX test's shape
+    (1, (64, 64), 12),
+    (2, (32, 32), 2),
+]
+
+
+@pytest.mark.parametrize("b,grid_hw,heads", INT8_CASES)
+def test_int8_kernel_matches_plain(cuda, b, grid_hw, heads):
+    """The int8 kernel against ``relpos_attention_int8_plain``: fp32 within
+    1e-4, bf16 by the 4x rule with the int8 twin on bf16 and on fp32-cast
+    inputs as the plain pair."""
+    args = (64 ** -0.5, grid_hw, heads)
+    qkv, r = _inputs(b, grid_hw, heads, torch.float32, cuda, seed=3)
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention_relpos_lanes(qkv, r, *args, int8_scores=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["relpos_global_int8"] == \
+        before["relpos_global_int8"] + 1
+    assert fa.LAUNCHES["relpos_global"] == before["relpos_global"]
+    torch.testing.assert_close(
+        out, fa.relpos_attention_int8_plain(qkv, r, *args), rtol=1e-4,
+        atol=1e-4)
+    qb, rb = qkv.bfloat16(), r.bfloat16()
+    out_b = fa.flash_attention_relpos_lanes(qb, rb, *args, int8_scores=True)
+    ok, diff, floor = _bf16_ok(
+        out_b, fa.relpos_attention_int8_plain(qb, rb, *args),
+        fa.relpos_attention_int8_plain(qb.float(), rb.float(), *args))
+    assert out_b.dtype == torch.bfloat16 and ok, (diff, floor)
+
+
+def test_int8_gradient_takes_full_precision_lse(cuda):
+    """With a gradient wanted the int8 forward also runs the bf16 / fp32
+    kernel for its log-sum-exp; the backward kernel then matches the plain
+    backward handed the int8 output."""
+    args = (64 ** -0.5, (32, 32), 2)
+    qkv, r = _inputs(1, (32, 32), 2, torch.float32, cuda, seed=4)
+    ct = torch.randn(1, 1024, 128, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(5))
+    qkv.requires_grad_()
+    r.requires_grad_()
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention_relpos_lanes(qkv, r, *args, int8_scores=True)
+    grads = torch.autograd.grad(out, (qkv, r), ct)
+    torch.cuda.synchronize()
+    for name in ("relpos_global_int8", "relpos_global", "relpos_global_bwd"):
+        assert fa.LAUNCHES[name] == before[name] + 1, name
+    with torch.no_grad():
+        plain = fa.relpos_attention_bwd_plain(qkv, r, out, ct, *args)
+    for got, ref in zip(grads, plain):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)

@@ -231,10 +231,13 @@ def _replay_prompt_encoder(case, g):
      emb) = case._inputs()
     module = _prompt_encoder(g)
     t = torch.from_numpy
+    # the case's prompt modalities only, as the reference ran it
+    use = lambda kind, pair: (tuple(map(t, pair)) if case.use in ("all", kind)
+                              else None)
 
     def run():
-        out = module(_channels_last(emb), (t(coords), t(labels)),
-                     (t(boxes), t(bflags)), (t(masks), t(mflags)),
+        out = module(_channels_last(emb), use("points", (coords, labels)),
+                     use("boxes", (boxes, bflags)), use("masks", (masks, mflags)),
                      t(flag_examples))
         return {"class_embs": out[ResultDict.CLASS_EMBS],
                 "examples_class_embs": out[ResultDict.EXAMPLES_CLASS_EMBS],
@@ -264,6 +267,9 @@ REPLAYS = {
     "two_way_transformer": _replay_two_way,
     "mask_decoder": _replay_mask_decoder,
     "prompt_image_encoder_all": _replay_prompt_encoder,
+    "prompt_image_encoder_points": _replay_prompt_encoder,
+    "prompt_image_encoder_boxes": _replay_prompt_encoder,
+    "prompt_image_encoder_masks": _replay_prompt_encoder,
     "lam_full": _replay_lam_full,
 }
 
@@ -283,3 +289,20 @@ def test_golden_replay(name):
     with torch.no_grad():
         ours = {k: v.numpy() for k, v in run().items()}
     case.compare(ours, outputs)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name,options", [
+    ("canonical_full_forward", {}),
+    ("sam_released_full_forward", {}),
+    ("sam_released_full_forward", {"fused_window": True}),
+], ids=["canonical", "sam_released", "sam_released_fused_window"])
+def test_golden_full_forward_replay(name, options):
+    """The two full-size fixtures (``lam_no_vit`` at 480 px; ``lam_b`` at
+    1024 px, with the fused windowed block too) through the port on the
+    CPU, at the cases' own tolerances. Slow, as in
+    tests/test_parity_golden.py: a full ViT-B forward at 1024 px in fp32."""
+    from tests.torch_golden_replay import replay
+
+    ours, ref = replay(name, **options)
+    CASES[name].compare(ours, ref)

@@ -181,8 +181,16 @@ def test_relpos_cuda_route_never_falls_back():
     with tfa.plain_attention():
         assert tfa._plain_requested
     assert not tfa._plain_requested
+    # the int8 score branch too, where its rule holds (an 8 x 8 grid)
+    qkv, r = _relpos_inputs(1, (8, 8), 2, seed=0)
+    qkv, r = torch.from_numpy(qkv).to("meta"), torch.from_numpy(r).to("meta")
+    assert tfa.int8_scores_ok((8, 8), 64)
+    with pytest.raises(ValueError, match="int8 kernel needs CUDA tensors"):
+        tfa.flash_attention_relpos_lanes(qkv, r, 0.125, (8, 8), 2,
+                                         int8_scores=True)
     assert sorted(tfa.LAUNCHES) == [
-        "flash", "fused_twoway", "relpos_global", "relpos_global_bwd", "relpos_packed_bf16exp",
+        "flash", "fused_twoway", "fused_window", "relpos_global",
+        "relpos_global_bwd", "relpos_global_int8", "relpos_packed_bf16exp",
         "relpos_packed_global", "relpos_packed_onehot",
         "relpos_packed_window", "relpos_window", "relpos_window_bwd"]
 
@@ -220,6 +228,8 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.models.affinity_decoder",
                "labelanything_tpu_torch.models.transformer",
                "labelanything_tpu_torch.ops.fused_twoway",
+               "labelanything_tpu_torch.ops.fused_window",
+               "labelanything_tpu_torch.models.image_encoder",
                "labelanything_tpu_torch.ops.twoway_shared",
                "labelanything_tpu_torch.ops._build",
                "labelanything_tpu_torch.ops.time_kernels",
@@ -230,7 +240,9 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.train.optim",
                "labelanything_tpu_torch.train.metrics",
                "labelanything_tpu_torch.train.substitutor",
-               "labelanything_tpu_torch.parallel.train_step"]
+               "labelanything_tpu_torch.parallel.train_step",
+               # chip_smoke.py's golden replays
+               "tests.torch_golden_replay"]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)
             + "import numpy as np\n"

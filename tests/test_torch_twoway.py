@@ -194,7 +194,7 @@ def test_fused_function_gradcheck(one_thread):
 CUDA = torch.device("cuda")
 RULE_CASES = [
     (dict(), True),                                  # the decode path
-    (dict(dtype=torch.float32), True),
+    (dict(dtype=torch.float32), False),              # the module path
     (dict(tokens=8), True),
     (dict(tokens=1, mlp_dim=64), True),
     (dict(device=torch.device("cpu")), False),
@@ -216,6 +216,9 @@ def test_fused_twoway_ok_rule(change, expected):
                 mlp_dim=2048, downsample=2, act=F.relu)
     case.update(change)
     assert ft.fused_twoway_ok(**case) is expected
+    # the kernel itself is compiled for fp32 too, for direct parity calls
+    assert ft.fused_twoway_compiled(**case) is (
+        expected or change == dict(dtype=torch.float32))
 
 
 def test_fused_cuda_route_never_falls_back():
