@@ -22,8 +22,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (|kernel - plain| <= 4 x |plain_bf16 - plain_fp32| + 1e-6, worst
    element, per output); kernel, plain twin and one library call
    (``scaled_dot_product_attention`` on the expanded bias; forward +
-   backward for a backward kernel) are timed, and the least time the card
-   could take is reckoned from the shapes. The global kernels take a
+   backward for a backward kernel) are timed, per wrapper call and, for
+   kernel and library call, on the device (back-to-back launches between
+   two events), each kernel's ratio to its call printed, and the least
+   time the card could take is reckoned from the shapes. The windowed
+   kernel (K2) is held and timed again at the embedding batch's 200
+   windows and at ViT-L's 16 heads. The global kernels take a
    shorter bias path when a row of the key grid is 64 wide, as at 1024 px;
    their general path is held against the twins on a 48 x 48 grid. The
    packed kernels (head width 80, ViT-H's) are held the same way on the
@@ -39,9 +43,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    rules, with a gradient through its autograd function against autograd
    through the twin; kernel, twin and the module path are timed. The plain
    flash kernel is held against ``flash_attention_plain`` at the affinity
-   decoder's call (6 x 8 heads, 4096 queries against 8192 keys, 32 wide),
-   at a ragged 1152 tokens and at head widths 64, 128 and 256, fp32 and
-   bf16 by the same rules, its strided views against contiguous tensors
+   decoder's call (6 x 8 heads, 4096 queries against 8192 keys, 32 wide:
+   the Hopper kernel), at a ragged 1152 tokens and at head widths 64 (the
+   Hopper kernel), 128 and 256 (the mma.sync kernel), each launch counted
+   under its route's key, fp32 and bf16 by the same rules, its strided views against contiguous tensors
    bit for bit, a gradient through its autograd function against autograd
    through the twin; kernel, twin and ``scaled_dot_product_attention`` are
    timed and the bound counts the exponentials beside the products. The
@@ -277,6 +282,10 @@ KERNELS = [
          b=150, grid=(14, 14), backward=True,
          source=_SRC + "relpos_window_bwd.cu", replaces=_JAX + "901"),
 ]
+# K2 besides the request's 25 windows: the embedding batch (8 images, 200
+# windows) and ViT-L's 16 heads; timed and held against the twins
+WINDOW_MORE = {"b200": dict(KERNELS[1], b=200),
+               "vit_l_heads16": dict(KERNELS[1], heads=16)}
 # the packed kernels at ViT-H's serving shapes: one image, 25 windows
 PACKED_KERNELS = [
     dict(name="relpos_packed_global", b=1, grid=(64, 64), heads=HEADS_H,
@@ -295,9 +304,10 @@ VARIANT_KERNELS = [
 # the plain flash kernel (K6) at the affinity decoder's call on phase 13's
 # traffic: 2 episodes x 3 classes, 8 heads, 4096 query tokens against 2
 # support images' 8192, 32 wide; then a ragged length (the JAX test's 1152)
-# and the route's other head widths on a small batch, not timed
+# and the route's other head widths on a small batch, not timed: 64 on the
+# Hopper kernel, 128 and 256 on the mma.sync kernel (flash_attention.cu)
 FLASH = dict(name="flash", b=6, heads=8, nq=4096, nk=8192, dh=32,
-             source=_SRC + "flash_attention.cu",
+             source=_SRC + "flash_wgmma.cu",
              replaces="labelanything_tpu/ops/flash_attention.py:367")
 FLASH_OTHER = [dict(FLASH, b=1, heads=2, nq=1152, nk=1152),
                dict(FLASH, b=2, heads=2, nq=1024, nk=2048, dh=64),
@@ -362,6 +372,38 @@ def median_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, launches: int = 200) -> float:
+    """Device time per launch, as ``ops/time_kernels.py`` takes it:
+    ``launches`` back-to-back calls between two CUDA events after a
+    warm-up, the median of three such runs. Host time between calls hides
+    behind the queued work, so this is the card's time, where
+    :func:`median_ms` (an event pair around each call) also holds the
+    host's."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / launches)
+    return statistics.median(runs)
+
+
+def ratio_text(s: dict) -> str:
+    """A kernel's times over its library call's: per wrapper call and on
+    the device."""
+    return (f"ratio to the library call {s['ms'] / s['library_ms']:.3f} a "
+            f"call, {s['device_ms'] / s['library_device_ms']:.3f} on the "
+            f"device ({s['device_ms']:.4f} ms vs {s['library_device_ms']:.4f} "
+            f"ms)")
+
+
 def phase_card() -> str:
     check(torch.cuda.is_available(), "no CUDA device")
     smi = subprocess.run(
@@ -414,11 +456,11 @@ def library_attention(qkv, r, grid_hw):
     expanded to (B, H, N, N), then ``scaled_dot_product_attention``."""
     b, n, c3 = qkv.shape
     kh, kw = grid_hw
-    c = c3 // 3
-    q, k, v = (x.reshape(b, n, HEADS, 64).transpose(1, 2)
+    c, heads = c3 // 3, r.shape[-1] // (kh + kw)
+    q, k, v = (x.reshape(b, n, heads, 64).transpose(1, 2)
                for x in qkv.split(c, dim=-1))
-    rb = r.reshape(b, n, HEADS, kh + kw).transpose(1, 2) / fa.LOG2E
-    bias = (rb[..., :kh, None] + rb[..., None, kh:]).reshape(b, HEADS, n, n)
+    rb = r.reshape(b, n, heads, kh + kw).transpose(1, 2) / fa.LOG2E
+    bias = (rb[..., :kh, None] + rb[..., None, kh:]).reshape(b, heads, n, n)
     out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=SCALE)
     return out.transpose(1, 2).reshape(b, n, c)
 
@@ -461,12 +503,13 @@ def kernel_inputs(k: dict):
     if "dh" in k:
         return packed_inputs(k)
     kh, kw = k["grid"]
-    n, c = kh * kw, HEADS * 64
+    heads = k.get("heads", HEADS)
+    n, c = kh * kw, heads * 64
     rng = np.random.default_rng(1)
     qkv = torch.from_numpy(rng.standard_normal((k["b"], n, 3 * c),
                                                np.float32)).cuda()
     r = torch.from_numpy((0.5 * rng.standard_normal(
-        (k["b"], n, HEADS * (kh + kw)))).astype(np.float32)).cuda()
+        (k["b"], n, heads * (kh + kw)))).astype(np.float32)).cuda()
     ct = torch.from_numpy(rng.standard_normal((k["b"], n, c),
                                               np.float32)).cuda()
     return qkv, r, ct
@@ -524,8 +567,12 @@ def check_forward(k: dict, timed: bool = True) -> dict:
         ms=median_ms(lambda: fn(qb, rb, *args)),
         plain_ms=median_ms(lambda: plain(qb, rb, *args)),
         library_ms=median_ms(lambda: library(qb, rb, k["grid"])),
+        device_ms=device_ms(lambda: fn(qb, rb, *args)),
+        library_device_ms=device_ms(lambda: library(qb, rb, k["grid"])),
         ms_fp32=median_ms(lambda: fn(qkv, r, *args)),
-        plain_ms_fp32=median_ms(lambda: plain(qkv, r, *args)))
+        plain_ms_fp32=median_ms(lambda: plain(qkv, r, *args)),
+        device_ms_fp32=device_ms(lambda: fn(qkv, r, *args), 50),
+        plain_device_ms_fp32=device_ms(lambda: plain(qkv, r, *args), 20))
 
 
 def check_packed_layouts(k: dict) -> dict:
@@ -577,15 +624,20 @@ def check_variants() -> dict:
         plain_ms = median_ms(lambda: fa.relpos_packed_plain(qkv, r, *args))
         library_ms = median_ms(
             lambda: library_attention_packed(qkv, r, k["grid"]))
+        library_device = device_ms(
+            lambda: library_attention_packed(qkv, r, k["grid"]))
     out = {}
     for k in VARIANT_KERNELS:
         rec = next(x for x in records
                    if x["kernel"] == k["name"] and x["dh"] == k["dh"])
         check(launches[k["name"]] > 0, f"{k['name']} was not launched")
+        # the microbench's time is already the device's per launch
         out[k["name"]] = dict(
             max_abs_err=rec["max_abs_err"], bf16_floor=rec["bf16_floor"],
             ms=rec["ms_per_launch"], plain_ms=plain_ms,
-            library_ms=library_ms, launches=launches[k["name"]], **bound(k))
+            library_ms=library_ms, device_ms=rec["ms_per_launch"],
+            library_device_ms=library_device, launches=launches[k["name"]],
+            **bound(k))
     return out
 
 
@@ -654,6 +706,8 @@ def check_backward(k: dict, timed: bool = True) -> dict:
                       f"function")
                 del y, lib
                 stats["library_ms"] = median_ms(library, iters=5)
+                stats["device_ms"] = device_ms(kernel, 20)
+                stats["library_device_ms"] = device_ms(library, 10)
                 stats["library_fwd_ms"] = median_ms(
                     lambda: library_attention(qkv.detach(), r.detach(),
                                               k["grid"]), iters=5)
@@ -731,6 +785,8 @@ def check_fused_window(k: dict, exp_rate: float) -> dict:
         ms=median_ms(lambda: fw.fused_window_attention(*low, *args)),
         plain_ms=median_ms(lambda: fw.fused_window_plain(*low, *args)),
         library_ms=median_ms(unfused),
+        device_ms=device_ms(lambda: fw.fused_window_attention(*low, *args)),
+        library_device_ms=device_ms(unfused),
         ms_fp32=median_ms(lambda: fw.fused_window_attention(*inputs, *args)),
         plain_ms_fp32=median_ms(lambda: fw.fused_window_plain(*inputs,
                                                               *args)),
@@ -754,7 +810,8 @@ def check_fused_window_all() -> dict:
               f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms by "
               f"{s['bound_by']}; fp32 {s['ms_fp32']:.4f} ms vs plain "
               f"{s['plain_ms_fp32']:.4f} ms, unfused "
-              f"{s['library_ms_fp32']:.4f} ms")
+              f"{s['library_ms_fp32']:.4f} ms; the unfused path is its "
+              f"yardstick: {ratio_text(s)}")
     summary = dict(out["vit_b"])
     summary["vit_h"] = out["vit_h"]
     return {"fused_window": summary}
@@ -816,6 +873,10 @@ def check_int8() -> dict:
         plain_ms=median_ms(lambda: fa.relpos_attention_int8_plain(qb, rb,
                                                                   *args)),
         library_ms=median_ms(lambda: library_attention(qb, rb, k["grid"])),
+        device_ms=device_ms(lambda: fa.flash_attention_relpos_lanes(
+            qb, rb, *args, int8_scores=True)),
+        library_device_ms=device_ms(
+            lambda: library_attention(qb, rb, k["grid"])),
         bf16_kernel_ms=median_ms(lambda: fa.flash_attention_relpos_lanes(
             qb, rb, *args)),
         ms_fp32=median_ms(lambda: fa.flash_attention_relpos_lanes(
@@ -831,7 +892,7 @@ def check_int8() -> dict:
           f"ms by {stats['bound_by']} (tensor cores "
           f"{stats['tensor_core_ms']:.4f} ms, exponentials "
           f"{stats['exp_ms']:.4f} ms); fp32 {stats['ms_fp32']:.4f} ms vs "
-          f"plain {stats['plain_ms_fp32']:.4f} ms")
+          f"plain {stats['plain_ms_fp32']:.4f} ms; {ratio_text(stats)}")
     return {k["name"]: stats}
 
 
@@ -857,7 +918,21 @@ def phase_kernels() -> dict:
               f"plain {s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} "
               f"ms, bound {s['bound_ms']:.4f} ms by {s['bound_by']}; fp32 "
               f"{s['ms_fp32']:.4f} ms vs plain {s['plain_ms_fp32']:.4f} ms"
-              + extra)
+              + extra + f"; {ratio_text(s)}")
+        if "device_ms_fp32" in s:
+            print(f"  fp32 on the device: {s['device_ms_fp32']:.4f} ms vs "
+                  f"plain {s['plain_device_ms_fp32']:.4f} ms")
+    for label, k in WINDOW_MORE.items():
+        s = results["relpos_window"][label] = dict(check_forward(k),
+                                                   **bound(k))
+        print(f"kernel relpos_window {label}: b {k['b']}, "
+              f"{k.get('heads', HEADS)} heads: fp32 err "
+              f"{s['max_abs_err']:.3g}, bf16 err {s['max_abs_err_bf16']:.3g} "
+              f"(floor {s['bf16_floor']:.3g}); bf16 {s['ms']:.4f} ms vs plain "
+              f"{s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} ms, "
+              f"bound {s['bound_ms']:.4f} ms by {s['bound_by']}; fp32 on the "
+              f"device {s['device_ms_fp32']:.4f} ms vs plain "
+              f"{s['plain_device_ms_fp32']:.4f} ms; {ratio_text(s)}")
     for k in GENERAL_PATH + [PACKED_GENERAL_PATH]:
         s = (check_backward if k["backward"] else check_forward)(k, False)
         if "dh" in k:
@@ -871,7 +946,7 @@ def phase_kernels() -> dict:
               f"{s['max_abs_err']:.3g} (floor {s['bf16_floor']:.3g}); "
               f"{s['ms']:.4f} ms a launch vs plain {s['plain_ms']:.4f} ms, "
               f"library {s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} "
-              f"ms by {s['bound_by']}")
+              f"ms by {s['bound_by']}; {ratio_text(s)}")
     results.update(variants)
     results.update(check_twoway())
     results.update(check_flash_all())
@@ -935,11 +1010,15 @@ def check_flash(k: dict, timed: bool = True) -> dict:
     in bf16, kernel and twin in fp32."""
     q, kk, v = flash_inputs(k)
     scale = k["dh"] ** -0.5
-    before = fa.LAUNCHES["flash"]
+    # the launch counter of the route this head width takes
+    key = fa.flash_route(k["dh"], torch.bfloat16)[0]
+    before = dict(fa.LAUNCHES)
     out = fa.flash_attention(q, kk, v, scale)
     ref = fa.flash_attention_plain(q, kk, v, scale)
     torch.cuda.synchronize()
-    check(fa.LAUNCHES["flash"] == before + 1, "flash: one launch a call")
+    check(fa.LAUNCHES[key] == before[key] + 1
+          and sum(fa.LAUNCHES.values()) == sum(before.values()) + 1,
+          f"flash dh {k['dh']}: one launch a call, counted under {key}")
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     err32 = (out - ref).abs().max().item()
     del out, ref
@@ -959,7 +1038,8 @@ def check_flash(k: dict, timed: bool = True) -> dict:
           and dense.is_contiguous(), "flash: unexpected layouts")
     check(torch.equal(out, dense), "flash: the strided views and the "
           "contiguous tensors give other bits")
-    stats = dict(max_abs_err=err32, max_abs_err_bf16=err16, bf16_floor=floor)
+    stats = dict(max_abs_err=err32, max_abs_err_bf16=err16, bf16_floor=floor,
+                 launch_key=key)
     if timed:
         lib_err = (library_flash(qb, kb, vb, scale).float() - ref32
                    ).abs().max().item()
@@ -971,6 +1051,10 @@ def check_flash(k: dict, timed: bool = True) -> dict:
             plain_ms=median_ms(lambda: fa.flash_attention_plain(qb, kb, vb,
                                                                 scale)),
             library_ms=median_ms(lambda: library_flash(qb, kb, vb, scale)),
+            device_ms=device_ms(lambda: fa.flash_attention(qb, kb, vb, scale),
+                                50),
+            library_device_ms=device_ms(
+                lambda: library_flash(qb, kb, vb, scale), 50),
             ms_fp32=median_ms(lambda: fa.flash_attention(q, kk, v, scale),
                               iters=5),
             plain_ms_fp32=median_ms(
@@ -986,8 +1070,9 @@ def check_flash_all() -> dict:
     for k in [FLASH] + FLASH_OTHER:
         stats = check_flash(k, timed=k is FLASH)
         print(f"kernel flash b {k['b']} heads {k['heads']} {k['nq']} x "
-              f"{k['nk']} dh {k['dh']}: fp32 err {stats['max_abs_err']:.3g}, "
-              f"bf16 err {stats['max_abs_err_bf16']:.3g} (floor "
+              f"{k['nk']} dh {k['dh']} ({stats['launch_key']}): fp32 err "
+              f"{stats['max_abs_err']:.3g}, bf16 err "
+              f"{stats['max_abs_err_bf16']:.3g} (floor "
               f"{stats['bf16_floor']:.3g}); strided views == contiguous")
         if k is FLASH:
             s = dict(stats, **flash_bound(k, exp_rate))
@@ -997,7 +1082,7 @@ def check_flash_all() -> dict:
           f"{s['mma_bound_ms']:.4f} ms, exponentials {s['exp_bound_ms']:.4f} "
           f"ms at {exp_rate:.4g} a second, bytes {s['bytes_bound_ms']:.4f} "
           f"ms); fp32 {s['ms_fp32']:.4f} ms vs plain "
-          f"{s['plain_ms_fp32']:.4f} ms")
+          f"{s['plain_ms_fp32']:.4f} ms; {ratio_text(s)}")
     k = FLASH_OTHER[0]
     q, kk, v = flash_inputs(k)
     ct = torch.from_numpy(np.random.default_rng(3).standard_normal(

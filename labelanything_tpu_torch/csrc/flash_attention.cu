@@ -1,7 +1,9 @@
 // Plain flash attention, out = softmax(q . k^T * scale) . v, per (batch,
-// head), over any query and key lengths: what the affinity decoder's
-// AffinityTransformer runs (queries the query image's 64 x 64 map, keys and
-// values every support image's map, heads 32 wide).
+// head), over any query and key lengths: heads 128 or 256 wide in bf16, and
+// every head width in fp32. Heads 32 or 64 wide in bf16 (the affinity
+// decoder's AffinityTransformer: queries the query image's 64 x 64 map,
+// keys and values every support image's map, heads 32 wide) take the
+// Hopper kernel of flash_wgmma.cu.
 //
 // Replaces the TPU kernel of labelanything_tpu/ops/flash_attention.py:
 // flash_attention -> _run_flash (Pallas bodies _attn_kernel and
@@ -20,15 +22,14 @@
 // by its batch, head and token strides (last axis contiguous), so the
 // attention's head-split views of the projections need no copy.
 //
-// * bf16 (flash_tc_kernel): tensor cores by mma.sync m16n8k16 with fp32
-//   accumulators and fp32 softmax state. One block of 4 warps takes 64
-//   query rows of one (batch, head), 16 rows a warp as A fragments; K and V
-//   come in 64-key tiles, double-buffered by cp.async so the next tile loads
-//   while this one is used. Per key a row does 4 dh flops in the two
-//   products and one exponential: at dh = 32 the exponentials (16 a clock
-//   per SM on the MUFU) weigh more than the tensor-core products, which
-//   bounds the work by operations, not bytes (about 4 dh / 2 flops a byte
-//   even at one pass over K and V per query tile). At dh <= 128 a warp's q
+// * bf16 (flash_tc_kernel, dh 128 and 256): tensor cores by mma.sync
+//   m16n8k16 with fp32 accumulators and fp32 softmax state. One block of 4
+//   warps takes 64 query rows of one (batch, head), 16 rows a warp as A
+//   fragments; K and V come in 64-key tiles, double-buffered by cp.async so
+//   the next tile loads while this one is used. Per key a row does 4 dh
+//   flops in the two products and one exponential, which bounds the work
+//   by operations, not bytes (about 4 dh / 2 flops a byte even at one pass
+//   over K and V per query tile). At dh 128 a warp's q
 //   fragments stay in registers; at dh = 256 they are read from shared
 //   memory at each tile, which keeps the 128 output accumulators a thread
 //   within the register file.
@@ -416,17 +417,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    bool is_bf16, const Strides* s, cudaStream_t stream) {
   const dim3 grid((nq + kQTile - 1) / kQTile, heads, batch);
   if (is_bf16) {
-    const size_t smem = tc_smem_bytes<DH>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    flash_tc_kernel<DH><<<grid, kTcThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), nq, nk, qscale, s[0], s[1], s[2],
-        s[3]);
+    // bf16 at dh 32 and 64 is flash_wgmma.cu's
+    if constexpr (DH < 128) {
+      return cudaErrorInvalidValue;
+    } else {
+      const size_t smem = tc_smem_bytes<DH>();
+      cudaError_t err = cudaFuncSetAttribute(
+          flash_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return err;
+      flash_tc_kernel<DH><<<grid, kTcThreads, smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<__nv_bfloat16*>(out), nq, nk, qscale, s[0], s[1], s[2],
+          s[3]);
+    }
   } else {
     const size_t smem = fp32_smem_bytes<DH>();
     cudaError_t err = cudaFuncSetAttribute(
@@ -447,8 +453,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // heads, nq, dh) of one dtype (0 = fp32, 1 = bf16), each with its last axis
 // contiguous and its batch, head and token strides (in elements) in
 // strides[0..2] (q), [3..5] (k), [6..8] (v), [9..11] (out); bf16 rows of
-// q, k, v 16-byte aligned, of out 4-byte aligned. dh is 32, 64, 128 or 256;
-// nq, nk >= 1. scale is the plain score scale; log2(e) is folded in here.
+// q, k, v 16-byte aligned, of out 4-byte aligned. dh is 32, 64, 128 or 256
+// in fp32, 128 or 256 in bf16; nq, nk >= 1. scale is the plain score scale;
+// log2(e) is folded in here.
 extern "C" int la_flash_attention(const void* q, const void* k, const void* v,
                                   void* out, int batch, int heads, int nq,
                                   int nk, int dh, float scale, int is_bf16,

@@ -16,8 +16,10 @@ in CUDA C++ for Hopper replace the TPU's Pallas kernels. For heads 64 wide
   one, with D = rowsum(dO . O) from the int8 output, as the JAX backward
   takes it;
 * :func:`flash_attention_relpos_lanes_batched` - windowed blocks
-  (N = 14 x 14): forward ``csrc/relpos_window.cu`` (one block per (window,
-  head), K/V resident in shared memory), backward
+  (N = 14 x 14, windows up to 16 x 16 on the card, :func:`window_grid_ok`):
+  forward ``csrc/relpos_window.cu`` (keys laid out by key-grid rows in
+  shared memory, a warp for each 16-row query tile, two blocks a (window,
+  head) in bf16; fp32 in TF32 with the three-product split), backward
   ``csrc/relpos_window_bwd.cu``.
 
 Both keep the JAX signature ``(qkv, r, scale, grid_hw, heads)``:
@@ -48,12 +50,15 @@ callers that hold q, k and v apart:
 And without a bias, for any lengths:
 
 * :func:`flash_attention` - softmax(q . k^T * scale) . v on q (B, H, Q, dh)
-  and k, v (B, H, K, dh), dh 32, 64, 128 or 256: ``csrc/flash_attention.cu``
-  (one block per (batch, head, 64-row query tile), online softmax). The
-  operands may be strided views with a contiguous last axis; the output
-  lies token-major when q does. Its backward recomputes the plain twin
-  under autograd on any device, as the JAX ``_bwd`` recomputes through
-  XLA. ``ops/attention.py`` routes to it.
+  and k, v (B, H, K, dh), dh 32, 64, 128 or 256, the kernel chosen by head
+  width (:func:`flash_route`): in bf16, heads 32 or 64 wide take
+  ``csrc/flash_wgmma.cu`` (TMA, wgmma, two consumer warpgroups in
+  ping-pong; launch counter ``flash``) and 128 or 256 wide
+  ``csrc/flash_attention.cu`` (mma.sync; ``flash_mma``), whose CUDA-core
+  kernel takes fp32 at every width. The operands may be strided views with
+  a contiguous last axis; the output lies token-major when q does. Its
+  backward recomputes the plain twin under autograd on any device, as the
+  JAX ``_bwd`` recomputes through XLA. ``ops/attention.py`` routes to it.
 
 A CPU tensor goes to the plain PyTorch twins, :func:`relpos_attention_plain`
 (the JAX ``_lanes_xla_ref``), :func:`relpos_packed_plain` (the JAX
@@ -84,8 +89,9 @@ LAUNCHES: Dict[str, int] = {"relpos_global": 0, "relpos_window": 0,
                             "relpos_packed_bf16exp": 0,
                             # the whole two-way transformer (ops/fused_twoway)
                             "fused_twoway": 0,
-                            # plain attention without a bias
-                            "flash": 0,
+                            # plain attention without a bias: heads 32 or
+                            # 64 wide, then 128 or 256 wide
+                            "flash": 0, "flash_mma": 0,
                             # the int8 score branch of the global kernel
                             "relpos_global_int8": 0,
                             # a windowed block's attention half
@@ -96,7 +102,10 @@ LAUNCHES: Dict[str, int] = {"relpos_global": 0, "relpos_window": 0,
 # flash_attention_relpos_packed
 KERNEL_HEAD_DIM = 64
 PACKED_HEAD_DIMS = (64, 80)  # head widths the packed kernels are compiled for
-FLASH_HEAD_DIMS = (32, 64, 128, 256)  # and the plain flash kernel
+FLASH_HEAD_DIMS = (32, 64, 128, 256)  # and the plain flash kernels
+# head widths of the Hopper flash kernel (wgmma, TMA); the others take the
+# mma.sync kernel of flash_attention.cu
+WGMMA_HEAD_DIMS = (32, 64)
 _WINDOW_MAX_N = 256
 _MAX_GRID_YZ = 65535  # CUDA's limit on a launch grid's y and z extents
 _MAX_RR = 256     # kh + kw bound of the kernels' shared-memory r rows
@@ -326,6 +335,13 @@ def _check(qkv: torch.Tensor, r: torch.Tensor, grid_hw: Tuple[int, int],
     _check_operands(qkv, r, n, grid_hw, (b, n, heads * sum(grid_hw)))
 
 
+def window_grid_ok(grid_hw: Tuple[int, int]) -> bool:
+    """Whether the windowed kernel takes a (kh, kw) key grid: it lays keys
+    out by key-grid rows of 8 or 16 slots, for windows up to 16 x 16."""
+    kh, kw = grid_hw
+    return kh <= 16 and kw <= 16
+
+
 def _check_launch(kernel: str, **tensors: torch.Tensor) -> None:
     for name, x in tensors.items():
         if x.device.type != "cuda":
@@ -342,6 +358,9 @@ def _launch(kernel: str, qkv: torch.Tensor, r: torch.Tensor, scale: float,
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Forward kernel ``la_<kernel>``: (out, lse or None)."""
     _check_launch(kernel, qkv=qkv, r=r)
+    if kernel == "relpos_window" and not window_grid_ok(grid_hw):
+        raise ValueError(f"the windowed kernel takes windows up to 16 x 16, "
+                         f"got {tuple(grid_hw)}")
     from . import _build
 
     lib = _build.load()
@@ -613,10 +632,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v)
 
 
+def flash_route(dh: int, dtype: torch.dtype) -> Tuple[str, str]:
+    """(``LAUNCHES`` key, C entry) of the flash kernel for a head width and
+    dtype, chosen before the launch: heads 32 or 64 wide count under
+    ``flash``, in bf16 on the Hopper kernel (``la_flash_wgmma``); heads 128
+    or 256 wide under ``flash_mma``, in bf16 on the mma.sync kernel; fp32
+    takes the CUDA-core kernel (``la_flash_attention``) at every width."""
+    key = "flash" if dh in WGMMA_HEAD_DIMS else "flash_mma"
+    entry = ("la_flash_wgmma" if key == "flash" and dtype == torch.bfloat16
+             else "la_flash_attention")
+    return key, entry
+
+
 def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
-    """Kernel ``la_flash_attention`` on strided operands: out (B, H, Q, dh),
-    laid out token-major when ``q`` is."""
+    """The flash kernel of :func:`flash_route` on strided operands: out (B,
+    H, Q, dh), laid out token-major when ``q`` is."""
     b, heads, nq, dh = q.shape
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
@@ -648,14 +679,16 @@ def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = torch.empty((b, heads, nq, dh), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
+    key, entry = flash_route(dh, q.dtype)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+            heads, nq, k.shape[2], dh, ctypes.c_float(scale)]
+    if entry == "la_flash_attention":
+        args.append(int(q.dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.la_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-            heads, nq, k.shape[2], dh, ctypes.c_float(scale),
-            int(q.dtype == torch.bfloat16), strides, stream)
-    _build.check(lib, err, "la_flash_attention")
-    LAUNCHES["flash"] += 1
+        err = getattr(lib, entry)(*args, strides, stream)
+    _build.check(lib, err, entry)
+    LAUNCHES[key] += 1
     return out
 
 

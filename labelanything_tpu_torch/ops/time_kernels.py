@@ -1,5 +1,6 @@
 """Device time of the forward kernels at their main paths' shapes (ViT-B's
-lanes kernels, ViT-H's packed kernels, the fused TwoWayTransformer at the
+lanes kernels, the windowed one also at 200 windows and at ViT-L's 16
+heads, ViT-H's packed kernels, the fused TwoWayTransformer at the
 episode-decode path's two call sites: 96 prompt-encoder instances and 16
 mask-decoder instances of 900 image tokens against 6 tokens, bf16, and the
 plain flash kernel at the affinity decoder's call: 6 x 8 heads of 4096
@@ -31,10 +32,14 @@ import sys
 import numpy as np
 import torch
 
-# kernel: (batch, key grid, heads, head width); ViT-B's lanes kernels, then
-# ViT-H's packed kernels on the token-major view the encoder hands them
+# kernel: (batch, key grid, heads, head width); ViT-B's lanes kernels (the
+# windowed one also at the embedding batch's 200 windows and at ViT-L's 16
+# heads), then ViT-H's packed kernels on the token-major view the encoder
+# hands them
 SHAPES = {"relpos_global": (1, (64, 64), 12, 64),
           "relpos_window": (25, (14, 14), 12, 64),
+          "relpos_window_b200": (200, (14, 14), 12, 64),
+          "relpos_window_heads16": (25, (14, 14), 16, 64),
           "relpos_packed_global": (1, (64, 64), 16, 80),
           "relpos_packed_window": (25, (14, 14), 16, 80)}
 
@@ -238,8 +243,10 @@ def main() -> None:
     sys.path.insert(0, opts.root)
     from labelanything_tpu_torch.ops import flash_attention as fa
 
+    windowed = fa.flash_attention_relpos_lanes_batched
     fns = {"relpos_global": fa.flash_attention_relpos_lanes,
-           "relpos_window": fa.flash_attention_relpos_lanes_batched}
+           "relpos_window": windowed, "relpos_window_b200": windowed,
+           "relpos_window_heads16": windowed}
     packed = getattr(fa, "flash_attention_relpos_packed", None)
     rng = np.random.default_rng(1)
     for name, (b, (kh, kw), heads, dh) in SHAPES.items():

@@ -78,6 +78,87 @@ def test_kernel_matches_plain(cuda, kind, b, grid_hw, heads):
     assert out_b.dtype == torch.bfloat16 and ok, (diff, floor)
 
 
+# K2 (the windowed kernel) at the serving path's windows (14 x 14) for
+# ViT-B's 12 and ViT-L's 16 heads, at a request's 25 windows and an
+# embedding batch's 200, and at the smaller and the largest windows
+WINDOW_CASES = [
+    # (batch, grid_hw, heads)
+    (25, (14, 14), 12), (200, (14, 14), 12), (25, (14, 14), 16),
+    (200, (14, 14), 16), (9, (7, 7), 12), (4, (7, 7), 16),
+    (3, (16, 16), 12), (2, (16, 16), 16),
+]
+
+
+def _lse_plain(qkv, r, scale, grid_hw, heads):
+    """The twin's log-sum-exp of every row, (B, heads, N) fp32, in the log2
+    domain the kernels keep: log2 sum_j 2^(q.k_j scale log2e + r terms)."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    kh, _ = grid_hw
+
+    def split(x):
+        return x.reshape(b, n, heads, -1).transpose(1, 2).double()
+
+    q, k = split(qkv[..., :c]), split(qkv[..., c:2 * c])
+    rb = split(r)
+    s = torch.matmul(q, k.transpose(-1, -2)) * (scale * fa.LOG2E)
+    s += (rb[..., :kh, None] + rb[..., None, kh:]).reshape(s.shape)
+    return (torch.logsumexp(s * np.log(2.0), dim=-1) / np.log(2.0)).float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,grid_hw,heads", WINDOW_CASES)
+def test_window_kernel_shapes_lse_and_gradient(cuda, b, grid_hw, heads,
+                                               dtype):
+    """K2 against its twin (fp32 within 1e-4, bf16 by the 4x rule); the
+    log-sum-exp it writes for the backward against the twin's on the same
+    (bf16-rounded) inputs, in float64, within 1e-4; K4's gradient, fed by
+    that log-sum-exp, against the plain backward by the same rules."""
+    args = (64 ** -0.5, grid_hw, heads)
+    qkv, r = _inputs(b, grid_hw, heads, dtype, cuda, seed=4)
+    before = dict(fa.LAUNCHES)
+    out, lse = fa._launch("relpos_window", qkv, r, *args, want_lse=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["relpos_window"] == before["relpos_window"] + 1
+    assert lse.shape == (b, heads, grid_hw[0] * grid_hw[1])
+    assert lse.dtype == torch.float32
+    torch.testing.assert_close(lse, _lse_plain(qkv, r, *args),
+                               rtol=1e-4, atol=1e-4)
+    plain = fa.relpos_attention_plain(qkv, r, *args)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
+    else:
+        ok, diff, floor = _bf16_ok(out, plain, fa.relpos_attention_plain(
+            qkv.float(), r.float(), *args))
+        assert out.dtype == dtype and ok, (diff, floor)
+    ct = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        tuple(out.shape), np.float32)).to(cuda, dtype)
+    qg, rg = qkv.clone().requires_grad_(), r.clone().requires_grad_()
+    grads = torch.autograd.grad(
+        fa.flash_attention_relpos_lanes_batched(qg, rg, *args), (qg, rg), ct)
+    assert fa.LAUNCHES["relpos_window_bwd"] == before["relpos_window_bwd"] + 1
+    with torch.no_grad():
+        ref = fa.relpos_attention_bwd_plain(qkv, r, out, ct, *args)
+        ref32 = fa.relpos_attention_bwd_plain(
+            qkv.float(), r.float(), out.float(), ct.float(), *args)
+    for got, x, x32 in zip(grads, ref, ref32):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, x, rtol=1e-4, atol=1e-4)
+        else:
+            ok, diff, floor = _bf16_ok(got, x, x32)
+            assert ok, (diff, floor)
+
+
+def test_window_kernel_rejects_grids_past_16(cuda):
+    """Windows past 16 x 16 raise on the card; the twin takes them on the
+    CPU only."""
+    qkv, r = _inputs(1, (4, 20), 2, torch.bfloat16, cuda)
+    before = fa.LAUNCHES["relpos_window"]
+    with pytest.raises(ValueError, match="16 x 16"):
+        fa.flash_attention_relpos_lanes_batched(qkv, r, 0.125, (4, 20), 2)
+    assert fa.LAUNCHES["relpos_window"] == before
+
+
 def test_kernel_rejects_bad_input(cuda):
     qkv, r = _inputs(1, (8, 8), 2, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -407,6 +488,7 @@ FLASH_CASES = [
     # (b, heads, nq, nk, dh)
     (6, 8, 4096, 8192, 32),     # the affinity decoder's call
     (1, 2, 1152, 1152, 32),     # ragged last tiles, as the JAX tail case
+    (1, 2, 1152, 1000, 32),     # ragged keys: a masked last key tile
     (2, 2, 1024, 2048, 64),
     (1, 2, 1152, 1024, 128),
     (1, 2, 1024, 1152, 256),
@@ -422,15 +504,19 @@ def test_flash_kernel_matches_plain(cuda, b, heads, nq, nk, dh, token_major):
     q, k, v = _flash_inputs(b, heads, nq, nk, dh, torch.float32, cuda,
                             token_major)
     scale = dh ** -0.5
-    before = fa.LAUNCHES["flash"]
+    key = fa.flash_route(dh, torch.float32)[0]
+    before = dict(fa.LAUNCHES)
     out = fa.flash_attention(q, k, v, scale)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash"] == before + 1
+    assert fa.LAUNCHES[key] == before[key] + 1
     assert fa._token_major(out) == (token_major and heads > 1)
     torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v, scale),
                                rtol=1e-4, atol=1e-4)
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
     out_b = fa.flash_attention(qb, kb, vb, scale)
+    # one launch a call, under the key of its head width's route only
+    assert fa.LAUNCHES[key] == before[key] + 2
+    assert sum(fa.LAUNCHES.values()) == sum(before.values()) + 2
     ok, diff, floor = _bf16_ok(
         out_b, fa.flash_attention_plain(qb, kb, vb, scale),
         fa.flash_attention_plain(qb.float(), kb.float(), vb.float(), scale))
@@ -457,6 +543,22 @@ def test_flash_kernel_gradient_and_plain_by_name(cuda):
     with fa.plain_attention():
         fa.flash_attention(q, k, v, 0.2)
     assert fa.LAUNCHES["flash"] == before
+
+
+@pytest.mark.parametrize("dh", fa.FLASH_HEAD_DIMS)
+def test_flash_route_by_head_width_on_the_card(cuda, dh):
+    """Heads 32 and 64 wide take the Hopper kernel (counted under
+    ``flash``), 128 and 256 the mma.sync kernel (``flash_mma``): each bf16
+    call adds one to its route's counter and nothing to the other's."""
+    q, k, v = _flash_inputs(1, 2, 1024, 1024, dh, torch.bfloat16, cuda, True)
+    key = fa.flash_route(dh, torch.bfloat16)[0]
+    other = ({"flash", "flash_mma"} - {key}).pop()
+    assert key == ("flash" if dh in (32, 64) else "flash_mma")
+    before = dict(fa.LAUNCHES)
+    fa.flash_attention(q, k, v, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[key] == before[key] + 1
+    assert fa.LAUNCHES[other] == before[other]
 
 
 def test_flash_kernel_rejects_bad_input(cuda):

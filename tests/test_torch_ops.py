@@ -189,7 +189,7 @@ def test_relpos_cuda_route_never_falls_back():
         tfa.flash_attention_relpos_lanes(qkv, r, 0.125, (8, 8), 2,
                                          int8_scores=True)
     assert sorted(tfa.LAUNCHES) == [
-        "flash", "fused_twoway", "fused_window", "relpos_global",
+        "flash", "flash_mma", "fused_twoway", "fused_window", "relpos_global",
         "relpos_global_bwd", "relpos_global_int8", "relpos_packed_bf16exp",
         "relpos_packed_global", "relpos_packed_onehot",
         "relpos_packed_window", "relpos_window", "relpos_window_bwd"]
@@ -206,6 +206,52 @@ def test_relpos_wrappers_reject_bad_shapes(fn):
         fn(qkv, r, 0.125, (4, 5), 2)
     with pytest.raises(TypeError):
         fn(qkv.double(), r.double(), 0.125, (4, 4), 2)
+
+
+@pytest.mark.parametrize("dh,dtype,expected", [
+    (32, torch.bfloat16, ("flash", "la_flash_wgmma")),   # the affinity call
+    (64, torch.bfloat16, ("flash", "la_flash_wgmma")),
+    (128, torch.bfloat16, ("flash_mma", "la_flash_attention")),
+    (256, torch.bfloat16, ("flash_mma", "la_flash_attention")),
+    (32, torch.float32, ("flash", "la_flash_attention")),
+    (256, torch.float32, ("flash_mma", "la_flash_attention")),
+])
+def test_flash_kernel_route_by_head_width(dh, dtype, expected):
+    """The flash kernel is chosen by head width and dtype before the
+    launch, each route under its own launch counter."""
+    assert tfa.flash_route(dh, dtype) == expected
+    assert expected[0] in tfa.LAUNCHES
+    assert (dh in tfa.WGMMA_HEAD_DIMS) == (expected[0] == "flash")
+
+
+@pytest.mark.parametrize("grid_hw,expected", [
+    ((14, 14), True),      # SAM's windows
+    ((7, 7), True), ((3, 3), True), ((16, 16), True), ((1, 1), True),
+    ((16, 9), True), ((14, 16), True), ((2, 12), True),
+    ((17, 9), False),      # 17 rows of 16 slots: 272 > 256
+    ((8, 17), False),      # a key-grid row wider than 16
+    ((32, 8), False), ((1, 200), False),
+])
+def test_window_kernel_grid_rule(grid_hw, expected):
+    """The windowed kernel lays keys out by key-grid rows of 8 or 16 slots,
+    at most 256 of them: every window up to 16 x 16, ViT windows of 14 x 14
+    among them."""
+    assert tfa.window_grid_ok(grid_hw) is expected
+    kh, kw = grid_hw
+    if expected:
+        width = 8 if kw <= 8 else 16
+        assert kh * width <= 256
+
+
+def test_window_grid_outside_the_kernel_takes_the_twin_on_cpu():
+    """A key grid the windowed kernel does not take still runs on the CPU
+    (the plain twin), with the twin's result."""
+    qkv, r = _relpos_inputs(2, (2, 20), 2, seed=3)
+    qkv, r = torch.from_numpy(qkv), torch.from_numpy(r)
+    assert not tfa.window_grid_ok((2, 20))
+    out = tfa.flash_attention_relpos_lanes_batched(qkv, r, 0.125, (2, 20), 2)
+    ref = tfa.relpos_attention_plain(qkv, r, 0.125, (2, 20), 2)
+    assert torch.equal(out, ref)
 
 
 def test_build_without_nvcc_raises_clear_error(monkeypatch, tmp_path):
@@ -233,6 +279,7 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.ops.twoway_shared",
                "labelanything_tpu_torch.ops._build",
                "labelanything_tpu_torch.ops.time_kernels",
+               "labelanything_tpu_torch.ops.time_paths",
                "labelanything_tpu_torch.ops.microbench_softmax_dtype",
                "labelanything_tpu_torch.models.build_encoder",
                "labelanything_tpu_torch.utils.weights",
