@@ -35,9 +35,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    windowed (25 windows), the strided view against the contiguous tensor
    bit for bit, the general bias path on 48 x 48, and a gradient through
    the autograd function (kernel forward, plain backward) against autograd
-   through the plain twin. The score-dtype microbench runs once at batch 1:
-   its variants of the packed global kernel against the twin, timed. The
-   fused TwoWayTransformer kernel is held against ``twoway_plain`` at the
+   through the plain twin; the windowed one again at the embedding batch's
+   200 windows. The backward kernels must give the same bits on a second
+   run (no atomics), and the global backward's three parts (delta pass,
+   query cut, key cut) are timed apart by a profiler pass, by kernel
+   name. Each kernel's share of its bound (bound over device time) is
+   printed. The score-dtype microbench runs once at batch 1: its variants
+   of the packed global kernel against the twin, timed. The fused
+   TwoWayTransformer kernel is held against ``twoway_plain`` at the
    decode path's two call sites (96 and 16 instances of 900 image tokens
    against 6 tokens, width 256), both outputs, fp32 and bf16 by the same
    rules, with a gradient through its autograd function against autograd
@@ -295,6 +300,9 @@ PACKED_KERNELS = [
          dh=DH_H, backward=False, source=_SRC + "relpos_packed.cu",
          replaces=_JAX + "1371"),
 ]
+# the packed windowed kernel besides the request's 25 windows: the embedding
+# batch (8 images, 200 windows); timed and held against the twins
+PACKED_MORE = {"b200": dict(PACKED_KERNELS[1], b=200)}
 # the microbench's variants of the packed global kernel, at the same shape
 VARIANT_KERNELS = [
     dict(PACKED_KERNELS[0], name=kernel,
@@ -372,13 +380,19 @@ def median_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+# cycles of the card's spin kernel that timed launches queue behind: some
+# 100 ms at 1.98 GHz, longer than the host takes to enqueue them
+SPIN_CYCLES = 2 * 10 ** 8
+
+
 def device_ms(fn, launches: int = 200) -> float:
     """Device time per launch, as ``ops/time_kernels.py`` takes it:
     ``launches`` back-to-back calls between two CUDA events after a
-    warm-up, the median of three such runs. Host time between calls hides
-    behind the queued work, so this is the card's time, where
-    :func:`median_ms` (an event pair around each call) also holds the
-    host's."""
+    warm-up, the median of three such runs. The calls are enqueued while the
+    card spins (``torch.cuda._sleep``) ahead of the first event, so they
+    run back to back whatever the host's time a call: this is the card's
+    time, where :func:`median_ms` (an event pair around each call) also
+    holds the host's."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -386,6 +400,7 @@ def device_ms(fn, launches: int = 200) -> float:
     for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(launches):
             fn()
@@ -402,6 +417,13 @@ def ratio_text(s: dict) -> str:
             f"call, {s['device_ms'] / s['library_device_ms']:.3f} on the "
             f"device ({s['device_ms']:.4f} ms vs {s['library_device_ms']:.4f} "
             f"ms)")
+
+
+def share_text(s: dict) -> str:
+    """A kernel's share of its bound: the least time the card could take
+    over its device time."""
+    return (f"share of the bound {s['bound_ms'] / s['device_ms']:.3f} on the "
+            f"device")
 
 
 def phase_card() -> str:
@@ -711,11 +733,50 @@ def check_backward(k: dict, timed: bool = True) -> dict:
                 stats["library_fwd_ms"] = median_ms(
                     lambda: library_attention(qkv.detach(), r.detach(),
                                               k["grid"]), iters=5)
+                if k["name"] == "relpos_global_bwd":
+                    stats.update(bwd_parts_ms(kernel))
+            # no atomics: a second run gives the same bits
+            again = kernel()
+            check(all(torch.equal(a, g) for a, g in zip(again, kernel())),
+                  f"{k['name']}: two runs give other gradients")
+            del again
         del qkv, r, ct, out
         torch.cuda.empty_cache()
     stats["bf16_by_output"] = {n: dict(err=e, floor=f)
                                for n, (e, f) in worst.items()}
     return stats
+
+
+# the global backward's three parts by the names of their kernels (the
+# wgmma cuts at 1024 px, the mma.sync ones on other grids)
+BWD_PARTS = {"delta_ms": ("delta_kernel",),
+             "dq_cut_ms": ("dq_wgmma_kernel", "bwd_dq_tc_kernel"),
+             "dkv_cut_ms": ("dkv_wgmma_kernel", "bwd_dkv_tc_kernel")}
+
+
+def bwd_parts_ms(kernel, launches: int = 20) -> dict:
+    """The global backward's three parts on the device: a profiler pass
+    over ``launches`` calls of the backward as training makes them, each
+    part's device time per launch read by its kernel's name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernel()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            kernel()
+        torch.cuda.synchronize()
+    times = {}
+    for part, names in BWD_PARTS.items():
+        found = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(name in e.key for name in names)]
+        check(sum(e.count for e in found) == launches,
+              f"the profiler saw {[(e.key, e.count) for e in found]} for "
+              f"{part}, not {launches} launches")
+        times[part] = sum(e.self_device_time_total for e in found) / 1e3 \
+            / launches
+    return times
 
 
 def fused_window_inputs(k: dict) -> list:
@@ -904,7 +965,13 @@ def phase_kernels() -> dict:
         if k["backward"]:
             extra = (f"; its forward kernel at these shapes: fp32 err "
                      f"{stats['fwd_max_abs_err']:.3g}, bf16 err "
-                     f"{stats['fwd_max_abs_err_bf16']:.3g}")
+                     f"{stats['fwd_max_abs_err_bf16']:.3g}; two runs give "
+                     f"the same bits")
+            if "delta_ms" in stats:
+                extra += (f"; its parts on the device: delta "
+                          f"{stats['delta_ms']:.4f} ms, query cut "
+                          f"{stats['dq_cut_ms']:.4f} ms, key cut "
+                          f"{stats['dkv_cut_ms']:.4f} ms")
         elif "dh" in k:
             stats.update(check_packed_layouts(k))
             extra = (f"; strided view == contiguous tensor; gradient (kernel "
@@ -918,7 +985,7 @@ def phase_kernels() -> dict:
               f"plain {s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} "
               f"ms, bound {s['bound_ms']:.4f} ms by {s['bound_by']}; fp32 "
               f"{s['ms_fp32']:.4f} ms vs plain {s['plain_ms_fp32']:.4f} ms"
-              + extra + f"; {ratio_text(s)}")
+              + extra + f"; {ratio_text(s)}; {share_text(s)}")
         if "device_ms_fp32" in s:
             print(f"  fp32 on the device: {s['device_ms_fp32']:.4f} ms vs "
                   f"plain {s['plain_device_ms_fp32']:.4f} ms")
@@ -932,7 +999,19 @@ def phase_kernels() -> dict:
               f"{s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} ms, "
               f"bound {s['bound_ms']:.4f} ms by {s['bound_by']}; fp32 on the "
               f"device {s['device_ms_fp32']:.4f} ms vs plain "
-              f"{s['plain_device_ms_fp32']:.4f} ms; {ratio_text(s)}")
+              f"{s['plain_device_ms_fp32']:.4f} ms; {ratio_text(s)}; "
+              f"{share_text(s)}")
+    for label, k in PACKED_MORE.items():
+        s = results[k["name"]][label] = dict(check_forward(k), **bound(k))
+        print(f"kernel {k['name']} {label}: b {k['b']}, {k['heads']} heads "
+              f"of {k['dh']}: fp32 err {s['max_abs_err']:.3g}, bf16 err "
+              f"{s['max_abs_err_bf16']:.3g} (floor {s['bf16_floor']:.3g}); "
+              f"bf16 {s['ms']:.4f} ms vs plain {s['plain_ms']:.4f} ms, "
+              f"library {s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} "
+              f"ms by {s['bound_by']}; fp32 on the device "
+              f"{s['device_ms_fp32']:.4f} ms vs plain "
+              f"{s['plain_device_ms_fp32']:.4f} ms; {ratio_text(s)}; "
+              f"{share_text(s)}")
     for k in GENERAL_PATH + [PACKED_GENERAL_PATH]:
         s = (check_backward if k["backward"] else check_forward)(k, False)
         if "dh" in k:
@@ -2175,9 +2254,16 @@ def main() -> None:
         if launches is None:
             launches = sum(path.get(k["name"], 0) for path in paths)
         check(launches > 0, f"{k['name']} was launched on no main path")
+        # the bound over the device time, where the device's was taken
+        share = (stats["bound_ms"] / stats["device_ms"]
+                 if "device_ms" in stats else None)
         summary.append(dict(name=k["name"], route="cuda", source=k["source"],
                             replaces=k["replaces"], launches=launches,
-                            **stats))
+                            bound_share=share, **stats))
+    print("share of the bound on the device: " + ", ".join(
+        f"{s['name']} " + ("not measured" if s["bound_share"] is None
+                           else f"{s['bound_share']:.3f}")
+        for s in summary))
     print(card)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -206,17 +206,11 @@ struct DqRows {
   uint32_t da[kSteps][4];  // dO as A fragments
   float lse[2], delta[2];  // of rows g, g + 8
   float dq[kDh / 8][4];
-  float drw[2][kChunk / 4];  // kRowChunk only: this thread's rel_w sums
 };
 
 // k_s / v_s: the chunk's 64 key rows (zero past n); r_w: the warp's 16 r
 // rows (stride rsb); ds_w: the warp's 16 x kDsLd fp32 scratch; dr_w: the
 // warp's 16 x rs dr accumulators.
-// kRowChunk: kw == kChunk, so a chunk is one row ky of the key grid and a
-// thread's 16 columns are the same kx in every chunk. Then the bias needs
-// no division, the rel_w sums stay in registers (st.drw) and the rel_h sum
-// is a row sum of the chunk: no shared copy of dS, no accumulate_dr.
-template <bool kRowChunk>
 __device__ __forceinline__ void dq_chunk(DqRows& st, const __nv_bfloat16* k_s,
                                          const __nv_bfloat16* v_s,
                                          const __nv_bfloat16* r_w, int rsb,
@@ -232,11 +226,6 @@ __device__ __forceinline__ void dq_chunk(DqRows& st, const __nv_bfloat16* k_s,
 
   const __nv_bfloat16* r0 = r_w + g * rsb;
   const __nv_bfloat16* r1 = r_w + (g + 8) * rsb;
-  const int row_ky = kbase / kChunk;  // kRowChunk: the chunk's ky
-  // kRowChunk: rel_h of the chunk less the rows' log-sum-exp
-  const float h0 = kRowChunk ? to_float(r0[row_ky]) - st.lse[0] : 0.f;
-  const float h1 = kRowChunk ? to_float(r1[row_ky]) - st.lse[1] : 0.f;
-  float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
   for (int nt = 0; nt < kChunk / 8; ++nt) {
 #pragma unroll
@@ -244,15 +233,9 @@ __device__ __forceinline__ void dq_chunk(DqRows& st, const __nv_bfloat16* k_s,
       const int e = nt * 8 + 2 * t + b, j = kbase + e;
       float ds0 = 0.f, ds1 = 0.f;
       if (j < n) {
-        float b0, b1;
-        if constexpr (kRowChunk) {
-          b0 = to_float(r0[kh + e]) + h0;
-          b1 = to_float(r1[kh + e]) + h1;
-        } else {
-          const int ky = j / kw, kx = kh + j - ky * kw;
-          b0 = to_float(r0[ky]) + to_float(r0[kx]) - st.lse[0];
-          b1 = to_float(r1[ky]) + to_float(r1[kx]) - st.lse[1];
-        }
+        const int ky = j / kw, kx = kh + j - ky * kw;
+        const float b0 = to_float(r0[ky]) + to_float(r0[kx]) - st.lse[0];
+        const float b1 = to_float(r1[ky]) + to_float(r1[kx]) - st.lse[1];
         const float p0 = exp2f(fmaf(s[nt][b], qscale, b0));
         const float p1 = exp2f(fmaf(s[nt][2 + b], qscale, b1));
         ds0 = p0 * (dp[nt][b] - st.delta[0]);
@@ -260,69 +243,32 @@ __device__ __forceinline__ void dq_chunk(DqRows& st, const __nv_bfloat16* k_s,
       }
       s[nt][b] = ds0;
       s[nt][2 + b] = ds1;
-      if constexpr (kRowChunk) {
-        st.drw[0][2 * nt + b] += ds0;
-        st.drw[1][2 * nt + b] += ds1;
-        sum0 += ds0;
-        sum1 += ds1;
-      }
     }
-    if constexpr (!kRowChunk) {
-      *reinterpret_cast<float2*>(ds_w + g * kDsLd + nt * 8 + 2 * t) =
-          make_float2(s[nt][0], s[nt][1]);
-      *reinterpret_cast<float2*>(ds_w + (g + 8) * kDsLd + nt * 8 + 2 * t) =
-          make_float2(s[nt][2], s[nt][3]);
-    }
+    *reinterpret_cast<float2*>(ds_w + g * kDsLd + nt * 8 + 2 * t) =
+        make_float2(s[nt][0], s[nt][1]);
+    *reinterpret_cast<float2*>(ds_w + (g + 8) * kDsLd + nt * 8 + 2 * t) =
+        make_float2(s[nt][2], s[nt][3]);
   }
-  if constexpr (kRowChunk) {
-    // a row lives in the 4 lanes of a quad; each (row, ky) is met once
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-    if (t == 0) {
-      dr_w[g * rs + row_ky] = sum0;
-      dr_w[(g + 8) * rs + row_ky] = sum1;
-    }
-    mma_rows<kChunk / 16>(st.dq, s, k_s, lane);
-  } else {
-    __syncwarp();
-    mma_rows<kChunk / 16>(st.dq, s, k_s, lane);
-    accumulate_dr(ds_w, kDsLd, kRows, kbase, min(kChunk, n - kbase), kh, kw,
-                  dr_w, rs, lane);
-    __syncwarp();  // ds_w is rewritten by the next chunk
-  }
+  __syncwarp();
+  mma_rows<kChunk / 16>(st.dq, s, k_s, lane);
+  accumulate_dr(ds_w, kDsLd, kRows, kbase, min(kChunk, n - kbase), kh, kw,
+                dr_w, rs, lane);
+  __syncwarp();  // ds_w is rewritten by the next chunk
 }
 
-__device__ __forceinline__ void dq_begin(DqRows& st) {
-  zero(st.dq);
-#pragma unroll
-  for (int e = 0; e < kChunk / 4; ++e) st.drw[0][e] = st.drw[1][e] = 0.f;
-}
+__device__ __forceinline__ void dq_begin(DqRows& st) { zero(st.dq); }
 
 // Writes the warp's dQ rows (x scale) and dr rows (/ log2 e) for queries
 // row0 .. row0 + 15; dq_dst / dr_dst point at this (image, head)'s first
 // row, with row strides dq_stride / dr_stride.
-template <bool kRowChunk>
 __device__ __forceinline__ void dq_end(const DqRows& st, float* dr_w, int rs,
-                                       int rr, int kh, float scale,
+                                       int rr, float scale,
                                        __nv_bfloat16* dq_dst,
                                        long long dq_stride,
                                        __nv_bfloat16* dr_dst,
                                        long long dr_stride, int row0, int n,
                                        int lane) {
   store_rows(st.dq, scale, dq_dst, dq_stride, row0, n, lane);
-  if constexpr (kRowChunk) {
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt)
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int col = kh + nt * 8 + 2 * t + b;
-        dr_w[g * rs + col] = st.drw[0][2 * nt + b];
-        dr_w[(g + 8) * rs + col] = st.drw[1][2 * nt + b];
-      }
-  }
   __syncwarp();
   for (int idx = lane; idx < kRows * rr; idx += 32) {
     const int i = idx / rr, j = idx - i * rr, qi = row0 + i;

@@ -26,11 +26,16 @@
 //   barrier per 64-key tile keep it under the tensor-core rate; wgmma and
 //   bulk copies are the next step. A key grid whose rows are 64 wide takes
 //   the instance that reads the bias without a division.
-// * bf16, windowed (packed_window_tc_kernel): one block per (window, head)
-//   keeps K and V resident (256 rows x 176 B x 2 = 90 KB at dh = 80, two
-//   blocks an SM) and reads them from device memory once; about 130 flops
-//   per byte, so bound by bytes. Pad tokens of a window are real keys; only
-//   the tile's tail past N is masked. N <= 256.
+// * bf16, windowed: relpos_window.cuh's window_tc_kernel, the design of
+//   the 64-wide windowed kernel (relpos_window.cu) as a template on the head
+//   width, on these strides: keys in slots by key-grid row (14 x 16 = 224
+//   at 14 x 14) with zero K / V and a -inf bias in empty slots, rel_w in
+//   registers and rel_h read once per key row, one warp per 16-row query
+//   tile, two blocks of 7 warps a (window, head), K and V copied once into
+//   shared memory (2 x 224 x 176 B = 79 KB at dh 80, 109 KB with the q and
+//   r staging: two blocks an SM). At dh 80 a warp takes the slots in four
+//   parts with three rescales, so that the 40 output registers leave room
+//   for the scores. Windows up to 16 x 16; bound by bytes.
 // * fp32 (packed_kernel, both entry points): CUDA cores, for parity runs.
 //   One block per (image or window, head, 64-row query tile) walks the keys
 //   in tiles of 64 (K transposed, V row-major in shared memory); warp w owns
@@ -42,6 +47,7 @@
 #include "relpos_common.cuh"
 #include "relpos_mma.cuh"
 #include "relpos_packed.cuh"
+#include "relpos_window.cuh"
 
 namespace relpos {
 namespace packed {
@@ -225,78 +231,6 @@ cudaError_t launch_fp32(const void* qkv, const void* r, void* out, int b,
   return cudaGetLastError();
 }
 
-__host__ __device__ inline int window_np(int n) {
-  return (n + tc::kChunk - 1) / tc::kChunk * tc::kChunk;
-}
-
-// Windowed blocks: one block per (window, head), K and V resident, each of
-// four warps takes 16-row query tiles in turn.
-template <int DH>
-__global__ void __launch_bounds__(tc::kThreads)
-    packed_window_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
-                            const __nv_bfloat16* __restrict__ r,
-                            __nv_bfloat16* __restrict__ out, int n, int heads,
-                            int kh, int kw, float qscale, Strides sq,
-                            Strides sr, Strides so) {
-  extern __shared__ float4 smem4[];
-  constexpr int kLd = DH + 8;
-  const int rr = kh + kw;
-  const int np = window_np(n);
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* v_s = k_s + np * kLd;
-  __nv_bfloat16* q_s = v_s + np * kLd;
-  float* r_s = reinterpret_cast<float*>(q_s + tc::kWarps * tc::kRows * kLd);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.x;
-  const long long g = blockIdx.y;
-  const __nv_bfloat16* q_g = qkv + g * sq.b + h * sq.h;
-  const __nv_bfloat16* k_g = q_g + heads * sq.h;
-  const __nv_bfloat16* v_g = k_g + heads * sq.h;
-  const __nv_bfloat16* r_g = r + g * sr.b + h * sr.h;
-  __nv_bfloat16* q_w = q_s + warp * tc::kRows * kLd;
-  float* r_w = r_s + warp * tc::kRows * (rr + 1);
-
-  copy_rows_async<DH>(k_g, sq.t, 0, np, n, k_s, tid, tc::kThreads);
-  copy_rows_async<DH>(v_g, sq.t, 0, np, n, v_s, tid, tc::kThreads);
-  tc::cp_async_wait();
-  __syncthreads();
-
-  const uint32_t unused[kOneHotSteps][4] = {};
-  for (int row0 = warp * tc::kRows; row0 < n;
-       row0 += tc::kWarps * tc::kRows) {
-    Rows<DH> st;
-    begin_rows<DH>(st, q_g, sq.t, row0, n, q_w, lane);
-    tc::load_r(r_g, sr.t, row0, n, rr, r_w, lane);
-    for (int k0 = 0; k0 < n; k0 += tc::kChunk)
-      chunk<DH, false, kBiasFromRow>(st, k_s + k0 * kLd, v_s + k0 * kLd, r_w,
-                                     rr + 1, unused, k0, n, kh, kw, qscale,
-                                     lane);
-    end_rows<DH, false>(st, out + g * so.b + h * so.h, so.t, row0, n, lane);
-    __syncwarp();  // q_w and r_w are restaged for the next tile
-  }
-}
-
-template <int DH>
-cudaError_t launch_window_tc(const void* qkv, const void* r, void* out, int g,
-                             int n, int heads, int kh, int kw, float qscale,
-                             const Strides* s, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(2 * window_np(n) + tc::kWarps * tc::kRows) * (DH + 8) *
-          sizeof(__nv_bfloat16) +
-      (size_t)tc::kWarps * tc::kRows * (kh + kw + 1) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_window_tc_kernel<DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(heads, g);
-  packed_window_tc_kernel<DH><<<grid, tc::kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv),
-      static_cast<const __nv_bfloat16*>(r), static_cast<__nv_bfloat16*>(out),
-      n, heads, kh, kw, qscale, s[0], s[1], s[2]);
-  return cudaGetLastError();
-}
-
 template <int DH>
 cudaError_t launch(bool windowed, const void* qkv, const void* r, void* out,
                    int b, int n, int heads, int kh, int kw, float qscale,
@@ -305,8 +239,10 @@ cudaError_t launch(bool windowed, const void* qkv, const void* r, void* out,
     return launch_fp32<DH>(qkv, r, out, b, n, heads, kh, kw, qscale, s,
                            stream);
   if (windowed)
-    return launch_window_tc<DH>(qkv, r, out, b, n, heads, kh, kw, qscale, s,
-                                stream);
+    return with_slot_layout(kh, kw, [&](auto kwp, auto nb) {
+      return launch_window_tc<DH, decltype(kwp)::value, decltype(nb)::value>(
+          qkv, r, out, nullptr, b, n, heads, kh, kw, qscale, s, stream);
+    });
   // a key grid whose rows are one chunk wide (64 x 64 at 1024 px) takes the
   // instance that reads the bias without a division
   return kw == tc::kChunk
@@ -349,7 +285,8 @@ extern "C" int la_relpos_packed_global(const void* qkv, const void* r,
                                     dh, scale, is_bf16, strides, stream);
 }
 
-// As la_relpos_packed_global over g windows of n <= 256 tokens.
+// As la_relpos_packed_global over g windows of n <= 256 tokens; in bf16
+// the key grid is at most 16 x 16.
 extern "C" int la_relpos_packed_window(const void* qkv, const void* r,
                                        void* out, int g, int n, int heads,
                                        int kh, int kw, int dh, float scale,

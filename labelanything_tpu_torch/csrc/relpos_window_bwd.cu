@@ -112,10 +112,10 @@ __global__ void __launch_bounds__(32 * kWWarps)
     __syncwarp();
 #pragma unroll 1
     for (int k0 = 0; k0 < n; k0 += tc::kChunk)
-      tcb::dq_chunk<false>(st, k_s + k0 * tc::kLd, v_s + k0 * tc::kLd,
+      tcb::dq_chunk(st, k_s + k0 * tc::kLd, v_s + k0 * tc::kLd,
                     r_s + row0 * rsb, rsb, ds_w, dr_w, rs, k0, n, kh, kw,
                     qscale, lane);
-    tcb::dq_end<false>(st, dr_w, rs, rr, kh, scale, dst, row_stride,
+    tcb::dq_end(st, dr_w, rs, rr, scale, dst, row_stride,
                 dr + g * n * heads * rr + h * rr, (long long)heads * rr, row0,
                 n, lane);
     __syncwarp();  // dr_w is cleared for the next tile

@@ -30,8 +30,8 @@ SOURCES = ("relpos_global.cu", "relpos_window.cu", "relpos_global_bwd.cu",
            "flash_attention.cu", "flash_wgmma.cu", "fused_window.cu",
            "relpos_global_int8.cu")
 HEADERS = ("relpos_common.cuh", "relpos_mma.cuh", "relpos_bwd.cuh",
-           "relpos_packed.cuh", "fused_twoway_fp32.cuh",
-           "fused_twoway_tc.cuh")
+           "relpos_packed.cuh", "relpos_window.cuh", "sm90.cuh",
+           "fused_twoway_fp32.cuh", "fused_twoway_tc.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 

@@ -40,7 +40,9 @@ callers that hold q, k and v apart:
 * :func:`flash_attention_relpos_packed` - ``qkv`` (B, 3 heads, N, dh) with
   q, k, v of head h in slots h, heads + h, 2 heads + h, ``r`` (B, heads, N,
   kh + kw), returns (B, heads, N, dh); ``csrc/relpos_packed.cu``, the
-  windowed kernel for N <= 256 and the global one above. The kernels take
+  windowed kernel (the template of ``csrc/relpos_window.cuh`` that K2 also
+  runs) for windows up to 16 x 16 (:func:`packed_route`) and the global
+  one for any other grid. The kernels take
   strides, so ``qkv`` may be the projection viewed token-major (no relayout
   copy), and the output then lies token-major too. Its backward is the
   plain one on any device, as in the JAX package;
@@ -342,6 +344,16 @@ def window_grid_ok(grid_hw: Tuple[int, int]) -> bool:
     return kh <= 16 and kw <= 16
 
 
+def packed_route(n: int, grid_hw: Tuple[int, int]) -> str:
+    """The packed kernel (its ``LAUNCHES`` key and C entry without ``la_``)
+    for n tokens on a (kh, kw) key grid: the windowed kernel where it takes
+    the grid (n <= 256 and :func:`window_grid_ok`), else the global one,
+    which takes any n."""
+    if n <= _WINDOW_MAX_N and window_grid_ok(grid_hw):
+        return "relpos_packed_window"
+    return "relpos_packed_global"
+
+
 def _check_launch(kernel: str, **tensors: torch.Tensor) -> None:
     for name, x in tensors.items():
         if x.device.type != "cuda":
@@ -565,8 +577,8 @@ def _launch_packed(kernel: str, qkv: torch.Tensor, r: torch.Tensor,
 
 class RelposPackedAttention(torch.autograd.Function):
     """``(qkv, r) -> out`` on the packed layout: the kernel forward
-    (``la_relpos_packed_window`` for N <= 256 tokens, else
-    ``la_relpos_packed_global``) and the plain backward
+    (:func:`packed_route`: ``la_relpos_packed_window`` for windows up to
+    16 x 16, else ``la_relpos_packed_global``) and the plain backward
     (:func:`relpos_packed_bwd_plain`) on any device: the JAX package has no
     backward kernel for this layout either, its backward recomputes the
     plain formula. CPU tensors (and any tensor inside
@@ -578,10 +590,8 @@ class RelposPackedAttention(torch.autograd.Function):
         if _plain_requested or qkv.device.type == "cpu":
             out = relpos_packed_plain(qkv, r, *ctx.args)
         else:
-            kernel = ("relpos_packed_window"
-                      if qkv.shape[2] <= _WINDOW_MAX_N
-                      else "relpos_packed_global")
-            out = _launch_packed(kernel, qkv, r, *ctx.args)
+            out = _launch_packed(packed_route(qkv.shape[2], grid_hw), qkv, r,
+                                 *ctx.args)
         ctx.save_for_backward(qkv, r, out)
         return out
 

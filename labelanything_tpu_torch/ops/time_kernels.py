@@ -1,8 +1,9 @@
 """Device time of the forward kernels at their main paths' shapes (ViT-B's
 lanes kernels, the windowed one also at 200 windows and at ViT-L's 16
-heads, ViT-H's packed kernels, the fused TwoWayTransformer at the
-episode-decode path's two call sites: 96 prompt-encoder instances and 16
-mask-decoder instances of 900 image tokens against 6 tokens, bf16, and the
+heads, ViT-H's packed kernels, the windowed one also at 200 windows, the
+backward kernels at the training step's 6 images, the fused
+TwoWayTransformer at the episode-decode path's two call sites: 96
+prompt-encoder instances and 16 mask-decoder instances of 900 image tokens against 6 tokens, bf16, and the
 plain flash kernel at the affinity decoder's call: 6 x 8 heads of 4096
 queries against 8192 keys, 32 wide, bf16 and fp32; the global kernel with
 int8 scores beside it at ViT-B's global block; the fused windowed block at
@@ -14,8 +15,9 @@ card.
 
 ``--root`` names the checkout whose ``labelanything_tpu_torch`` is timed
 (default: the current directory). Each kernel is launched ``--launches``
-times back to back between two CUDA events, so the figure is the device's
-time per launch and not the host's time per call; the per-call median (an
+times back to back between two CUDA events, queued behind a spin of the
+card, so the figure is the device's time per launch and not the host's time
+per call; the per-call median (an
 event pair around every call, host time included) is printed beside it.
 One JSON line per kernel. To compare two trees, run them alternately in one
 job: A, B, B, A.
@@ -41,7 +43,13 @@ SHAPES = {"relpos_global": (1, (64, 64), 12, 64),
           "relpos_window_b200": (200, (14, 14), 12, 64),
           "relpos_window_heads16": (25, (14, 14), 16, 64),
           "relpos_packed_global": (1, (64, 64), 16, 80),
-          "relpos_packed_window": (25, (14, 14), 16, 80)}
+          "relpos_packed_window": (25, (14, 14), 16, 80),
+          "relpos_packed_window_b200": (200, (14, 14), 16, 80)}
+
+# the backward kernels at the training step's shapes: K3 on 6 images and K4
+# on their 150 windows, 12 heads of 64
+BWD_SHAPES = {"relpos_global": (6, (64, 64), 12, 64),
+              "relpos_window": (150, (14, 14), 12, 64)}
 
 
 # fused TwoWayTransformer: instances, image tokens, tokens (width 256)
@@ -52,12 +60,21 @@ TWOWAY_SHAPES = {"prompt_encoder": (96, 900, 6), "mask_decoder": (16, 900, 6),
                  "one_instance": (1, 900, 6), "token_side": (96, 16, 6)}
 
 
+# cycles of the card's spin kernel that the timed launches queue behind: some
+# 100 ms at 1.98 GHz, longer than the host takes to enqueue them
+SPIN_CYCLES = 2 * 10 ** 8
+
+
 def device_and_call_ms(call, launches: int, repeats: int):
     """(device ms per launch: median and least over ``repeats`` runs of
-    ``launches`` back-to-back calls, per-call median over 50 single calls)."""
-    def events(count):
+    ``launches`` back-to-back calls, per-call median over 50 single calls).
+    The back-to-back calls are enqueued while the card spins ahead of the
+    first event, so the host's time a call cannot set the device's."""
+    def events(count, queued):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(count):
             call()
@@ -66,9 +83,9 @@ def device_and_call_ms(call, launches: int, repeats: int):
         return start.elapsed_time(end) / count
 
     with torch.no_grad():
-        events(10)
-        device_ms = [events(launches) for _ in range(repeats)]
-        call_ms = [events(1) for _ in range(50)]
+        events(10, False)
+        device_ms = [events(launches, True) for _ in range(repeats)]
+        call_ms = [events(1, False) for _ in range(50)]
     return (statistics.median(device_ms), min(device_ms),
             statistics.median(call_ms))
 
@@ -210,6 +227,30 @@ def time_fused_window(opts) -> None:
                 card=torch.cuda.get_device_name(0))))
 
 
+def time_backward(opts) -> None:
+    """K3 and K4 at the training step's shapes: the forward kernel with its
+    log-sum-exp once, then backward launches back to back (20 a run)."""
+    from labelanything_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(1)
+    for kernel, (b, (kh, kw), heads, dh) in BWD_SHAPES.items():
+        n = kh * kw
+        f = lambda *s: torch.from_numpy(rng.standard_normal(
+            s, np.float32)).cuda().bfloat16()
+        qkv, r = f(b, n, 3 * heads * dh), 0.5 * f(b, n, heads * (kh + kw))
+        dout = f(b, n, heads * dh)
+        args = (dh ** -0.5, (kh, kw), heads)
+        out, lse = fa._launch(kernel, qkv, r, *args, want_lse=True)
+        median, least, per_call = device_and_call_ms(
+            lambda: fa._launch_bwd(kernel, qkv, r, out, dout, lse, *args),
+            20, opts.repeats)
+        print(json.dumps(dict(
+            label=opts.label, kernel=kernel + "_bwd", batch=b,
+            grid=[kh, kw], heads=heads, device_ms_per_launch=median,
+            device_ms_min=least, call_ms_median=per_call,
+            card=torch.cuda.get_device_name(0))))
+
+
 def time_int8(opts) -> None:
     """The global kernel with int8 scores beside the bf16 one, at ViT-B's
     global block (one image, 12 heads, 64 x 64 tokens)."""
@@ -270,6 +311,7 @@ def main() -> None:
             label=opts.label, kernel=name, batch=b, grid=[kh, kw],
             device_ms_per_launch=median, device_ms_min=least,
             call_ms_median=per_call, card=torch.cuda.get_device_name(0))))
+    time_backward(opts)
     if os.path.exists(os.path.join(
             opts.root, "labelanything_tpu_torch/ops/fused_twoway.py")):
         time_fused_twoway(opts)

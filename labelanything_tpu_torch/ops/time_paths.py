@@ -1,6 +1,7 @@
 """End-to-end times of the paths that run the attention kernels, for
 comparing two checkouts on one card: ``chip_smoke.py``'s ViT-B request
-(phase 4), bf16 training step (phase 6), embedding of 8 images with
+(phase 4), bf16 training step (phase 6), ``lam_h`` request with a profiler
+pass over it (phase 8), embedding of 8 images with
 ``build_vit_b``, ``build_vit_l`` and ``build_vit_h`` (phases 9 and 15) and
 affinity decode (phase 13), each as that checkout's ``chip_smoke.py``
 drives it, with its own kernels and launch checks.
@@ -29,7 +30,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=".")
     parser.add_argument("--label", default="")
-    # requests a ViT-B serve after the support set; the first warms up
+    # requests a ViT-B and a lam_h serve after the support set; the first
+    # warms up
     parser.add_argument("--requests", type=int, default=3)
     opts = parser.parse_args()
     root = os.path.abspath(opts.root)
@@ -50,6 +52,8 @@ def main() -> None:
     with contextlib.redirect_stdout(Tee()):
         cs.phase_serve(requests=opts.requests)
         cs.phase_train()
+        cs.phase_serve(cs.CONFIG_H, cs.ENCODER_LAUNCHES_H,
+                       requests=opts.requests, profile=True)
         for build, name, launches in (
                 (cs.build_vit_b, "vit_b", cs.ENCODER_LAUNCHES),
                 (cs.build_vit_l, "vit_l", cs.ENCODER_LAUNCHES_L),
@@ -67,6 +71,10 @@ def main() -> None:
         label=opts.label, root=root, card=torch.cuda.get_device_name(0),
         request_ms=number(r"serve lam_b: .*?request latency median ([\d.]+)"),
         train_step_ms=number(r"train: 6 images.*?median ([\d.]+) ms"),
+        request_h_ms=number(
+            r"serve lam_h: .*?request latency median ([\d.]+)"),
+        request_h_kernel_ms=number(
+            r"profile: 2 requests, .*kernel time ([\d.]+) ms a request"),
         embed_vit_b=number(r"embed vit_b: .*= ([\d.]+) images/s"),
         embed_vit_l=number(r"embed vit_l: .*= ([\d.]+) images/s"),
         embed_vit_h=number(r"embed vit_h: .*= ([\d.]+) images/s"),

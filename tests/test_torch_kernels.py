@@ -49,6 +49,9 @@ CASES = [
     ("global", 2, (48, 16), 2),
     ("global", 2, (16, 48), 2),
     ("global", 1, (7, 9), 2),      # ragged query and key tiles
+    ("global", 2, (8, 64), 2),     # 64-wide key-grid rows: the wgmma backward
+    ("global", 1, (7, 64), 2),     # 64-wide rows the wgmma backward refuses:
+                                   # the general mma.sync path
     ("window", 25, (14, 14), 12),
     ("window", 4, (3, 3), 2),
     ("window", 3, (16, 16), 2),    # the 256-token maximum
@@ -204,16 +207,20 @@ def test_backward_kernel_matches_plain(cuda, kind, b, grid_hw, heads, dtype):
             assert ok, (diff, floor)
 
 
-def test_backward_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("b,grid_hw,heads", [
+    (2, (32, 32), 4),
+    (2, (16, 64), 3),    # 64-wide key-grid rows: the wgmma backward
+])
+def test_backward_kernel_is_deterministic(cuda, b, grid_hw, heads):
     """No atomics: two runs give bit-identical gradients."""
-    qkv, r = _inputs(2, (32, 32), 4, torch.bfloat16, cuda)
+    qkv, r = _inputs(b, grid_hw, heads, torch.bfloat16, cuda)
     qkv.requires_grad_()
     r.requires_grad_()
-    out = fa.flash_attention_relpos_lanes(qkv, r, 0.125, (32, 32), 4)
+    out = fa.flash_attention_relpos_lanes(qkv, r, 0.125, grid_hw, heads)
     ct = torch.ones_like(out)
     first = torch.autograd.grad(out, (qkv, r), ct, retain_graph=True)
     second = torch.autograd.grad(out, (qkv, r), ct)
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_no_lse_without_grad_and_plain_by_name(cuda):
@@ -258,6 +265,10 @@ PACKED_CASES = [
     (4, (3, 3), 2, 80),
     (3, (16, 16), 2, 64),      # the windowed kernel's 256-token maximum
     (2, (7, 9), 1, 64),
+    (4, (7, 7), 2, 80),        # windowed, key-grid rows of 8 slots
+    (3, (16, 16), 2, 80),      # windowed, the 16 x 16 maximum at dh 80
+    (2, (4, 20), 2, 80),       # N <= 256 on a grid the windowed kernel
+                               # refuses: the global kernel
 ]
 
 
@@ -265,8 +276,7 @@ PACKED_CASES = [
 @pytest.mark.parametrize("b,grid_hw,heads,dh", PACKED_CASES)
 def test_packed_kernel_matches_plain(cuda, b, grid_hw, heads, dh,
                                      token_major):
-    counter = ("relpos_packed_window" if grid_hw[0] * grid_hw[1] <= 256
-               else "relpos_packed_global")
+    counter = fa.packed_route(grid_hw[0] * grid_hw[1], grid_hw)
     args = (dh ** -0.5, grid_hw, heads)
     qkv, r = _packed_inputs(b, grid_hw, heads, dh, torch.float32, cuda,
                             token_major)

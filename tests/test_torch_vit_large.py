@@ -236,6 +236,24 @@ def test_packed_cuda_route_never_falls_back():
         tfa.LAUNCHES)
 
 
+@pytest.mark.parametrize("grid_hw,kernel", [
+    ((14, 14), "relpos_packed_window"),
+    ((7, 7), "relpos_packed_window"),
+    ((16, 16), "relpos_packed_window"),
+    ((3, 3), "relpos_packed_window"),
+    ((4, 20), "relpos_packed_global"),    # N <= 256, a row past 16 slots
+    ((17, 17), "relpos_packed_global"),
+    ((64, 64), "relpos_packed_global"),
+])
+def test_packed_route_by_grid(grid_hw, kernel):
+    """The packed route takes the windowed kernel exactly for the grids
+    ``window_grid_ok`` admits with N <= 256, the global kernel otherwise."""
+    n = grid_hw[0] * grid_hw[1]
+    assert tfa.packed_route(n, grid_hw) == kernel
+    assert (kernel == "relpos_packed_window") == (
+        n <= 256 and tfa.window_grid_ok(grid_hw))
+
+
 def test_packed_wrapper_rejects_bad_shapes():
     qkv, r = _packed_inputs(1, (4, 4), 2, 16, seed=0)
     qkv, r = torch.from_numpy(qkv), torch.from_numpy(r)
