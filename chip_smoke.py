@@ -184,6 +184,7 @@ from labelanything_tpu_torch.ops import flash_attention as fa
 from labelanything_tpu_torch.ops import fused_twoway as ft
 from labelanything_tpu_torch.ops import fused_window as fw
 from labelanything_tpu_torch.ops import microbench_softmax_dtype as microbench
+from labelanything_tpu_torch.ops import time_kernels
 from labelanything_tpu_torch.ops.time_kernels import unfused_window_call
 from labelanything_tpu_torch.parallel.train_step import (init_train_state,
                                                          make_train_step)
@@ -294,15 +295,17 @@ WINDOW_MORE = {"b200": dict(KERNELS[1], b=200),
 # the packed kernels at ViT-H's serving shapes: one image, 25 windows
 PACKED_KERNELS = [
     dict(name="relpos_packed_global", b=1, grid=(64, 64), heads=HEADS_H,
-         dh=DH_H, backward=False, source=_SRC + "relpos_packed.cu",
+         dh=DH_H, backward=False, source=_SRC + "relpos_packed_sm90.cu",
          replaces=_JAX + "1371"),
     dict(name="relpos_packed_window", b=25, grid=(14, 14), heads=HEADS_H,
          dh=DH_H, backward=False, source=_SRC + "relpos_packed.cu",
          replaces=_JAX + "1371"),
 ]
-# the packed windowed kernel besides the request's 25 windows: the embedding
-# batch (8 images, 200 windows); timed and held against the twins
-PACKED_MORE = {"b200": dict(PACKED_KERNELS[1], b=200)}
+# the packed kernels besides a request's image: the embedding batch (8
+# images: the global kernel's 8, the windowed kernel's 200 windows); timed
+# and held against the twins
+PACKED_MORE = {"b200": dict(PACKED_KERNELS[1], b=200),
+               "b8": dict(PACKED_KERNELS[0], b=8)}
 # the microbench's variants of the packed global kernel, at the same shape
 VARIANT_KERNELS = [
     dict(PACKED_KERNELS[0], name=kernel,
@@ -326,7 +329,8 @@ FLASH_OTHER = [dict(FLASH, b=1, heads=2, nq=1152, nk=1152),
 # plain twins, not timed; the main path at 1024 px does not take it.
 GENERAL_PATH = [dict(KERNELS[0], b=6, grid=(48, 48)),
                 dict(KERNELS[2], grid=(48, 48))]
-PACKED_GENERAL_PATH = dict(PACKED_KERNELS[0], b=2, grid=(48, 48))
+PACKED_GENERAL_PATH = dict(PACKED_KERNELS[0], b=2, grid=(48, 48),
+                           source=_SRC + "relpos_packed.cu")
 # parameters that the step's episodes give no gradient: negative points,
 # the no-mask / no-sparse stand-ins, and the prompt transformer's final
 # token-to-image attention, whose output (the queries) the encoder drops
@@ -597,14 +601,36 @@ def check_forward(k: dict, timed: bool = True) -> dict:
         plain_device_ms_fp32=device_ms(lambda: plain(qkv, r, *args), 20))
 
 
-def check_packed_layouts(k: dict) -> dict:
+def check_packed_layouts(k: dict, gradient: bool = True) -> dict:
     """A packed kernel beyond its forward check: the token-major view
     against the contiguous slot-major tensor, bit for bit in both dtypes
-    (the output then lies as the input does), and a gradient through the
-    autograd function (kernel forward, plain backward) against autograd
-    through the plain twin (fp32, rtol = atol = 1e-4)."""
+    (the output then lies as the input does); in bf16 the call launches
+    the kernel that ``packed_global_kernel`` (global) names; and, with
+    ``gradient``, a gradient through the autograd function (kernel forward,
+    plain backward) against autograd through the plain twin (fp32, rtol =
+    atol = 1e-4)."""
     qkv, r, ct = kernel_inputs(k)
     args = kernel_args(k)
+    if k["name"] == "relpos_packed_global":
+        qb, rb = qkv.bfloat16(), r.bfloat16()
+        with torch.no_grad():
+            names = time_kernels.kernel_names(
+                lambda: fa.flash_attention_relpos_packed(qb, rb, *args))
+        want = fa.packed_global_kernel(torch.bfloat16, k["dh"], k["grid"])
+        check(len(names) == 1 and want in next(iter(names)),
+              f"{k['name']} b {k['b']} grid {k['grid']}: 20 calls launched "
+              f"{names}, its rule names {want}")
+        del qb, rb
+    if not gradient:
+        for a, c in ((qkv, r), (qkv.bfloat16(), r.bfloat16())):
+            with torch.no_grad():
+                check(torch.equal(
+                    fa.flash_attention_relpos_packed(a, c, *args),
+                    fa.flash_attention_relpos_packed(
+                        a.contiguous(), c.contiguous(), *args)),
+                    f"{k['name']} b {k['b']} {a.dtype}: the strided view and "
+                    f"the contiguous tensor give other bits")
+        return {}
     for a, c in ((qkv, r), (qkv.bfloat16(), r.bfloat16())):
         with torch.no_grad():
             strided = fa.flash_attention_relpos_packed(a, c, *args)
@@ -733,8 +759,7 @@ def check_backward(k: dict, timed: bool = True) -> dict:
                 stats["library_fwd_ms"] = median_ms(
                     lambda: library_attention(qkv.detach(), r.detach(),
                                               k["grid"]), iters=5)
-                if k["name"] == "relpos_global_bwd":
-                    stats.update(bwd_parts_ms(kernel))
+                stats.update(bwd_parts_ms(kernel, bwd_parts(k)))
             # no atomics: a second run gives the same bits
             again = kernel()
             check(all(torch.equal(a, g) for a, g in zip(again, kernel())),
@@ -754,28 +779,30 @@ BWD_PARTS = {"delta_ms": ("delta_kernel",),
              "dkv_cut_ms": ("dkv_wgmma_kernel", "bwd_dkv_tc_kernel")}
 
 
-def bwd_parts_ms(kernel, launches: int = 20) -> dict:
-    """The global backward's three parts on the device: a profiler pass
-    over ``launches`` calls of the backward as training makes them, each
-    part's device time per launch read by its kernel's name."""
-    from torch.profiler import ProfilerActivity, profile
+def bwd_parts(k: dict) -> dict:
+    """A bf16 backward's parts by kernel name: K3's, or the windowed
+    backward's as its rule (``window_bwd_kernels``) names them."""
+    if k["name"] == "relpos_global_bwd":
+        return BWD_PARTS
+    return {part: (name,) for part, name in zip(
+        BWD_PARTS, fa.window_bwd_kernels(torch.bfloat16, k["grid"]))}
 
-    kernel()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            kernel()
-        torch.cuda.synchronize()
+
+def bwd_parts_ms(kernel, parts: dict, launches: int = 20) -> dict:
+    """A backward's three parts on the device: a profiler pass over
+    ``launches`` calls of the backward as training makes them, each part's
+    device time per launch read by its kernel's name (over the launches the
+    pass saw: it may miss one at its end)."""
+    events = time_kernels.kernel_events(kernel, launches)
     times = {}
-    for part, names in BWD_PARTS.items():
-        found = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and any(name in e.key for name in names)]
-        check(sum(e.count for e in found) == launches,
+    for part, names in parts.items():
+        found = [e for e in events if any(name in e.key for name in names)]
+        seen = sum(e.count for e in found)
+        check(launches - 1 <= seen <= launches,
               f"the profiler saw {[(e.key, e.count) for e in found]} for "
               f"{part}, not {launches} launches")
         times[part] = sum(e.self_device_time_total for e in found) / 1e3 \
-            / launches
+            / seen
     return times
 
 
@@ -1003,6 +1030,7 @@ def phase_kernels() -> dict:
               f"{share_text(s)}")
     for label, k in PACKED_MORE.items():
         s = results[k["name"]][label] = dict(check_forward(k), **bound(k))
+        check_packed_layouts(k, gradient=False)
         print(f"kernel {k['name']} {label}: b {k['b']}, {k['heads']} heads "
               f"of {k['dh']}: fp32 err {s['max_abs_err']:.3g}, bf16 err "
               f"{s['max_abs_err_bf16']:.3g} (floor {s['bf16_floor']:.3g}); "
@@ -1290,6 +1318,8 @@ def check_twoway() -> dict:
             stats.update(
                 ms=median_ms(lambda: ft.fused_twoway_transformer(kb, qb, pb,
                                                                  *args)),
+                device_ms=device_ms(lambda: ft.fused_twoway_transformer(
+                    kb, qb, pb, *args)),
                 plain_ms=median_ms(lambda: ft.twoway_plain(kb, qb, pb, *args)),
                 module_ms=median_ms(module_path), library_ms=None,
                 ms_fp32=median_ms(lambda: ft.fused_twoway_transformer(
@@ -1304,7 +1334,8 @@ def check_twoway() -> dict:
               f"{s['bf16_floor']:.3g}); bf16 {s['ms']:.4f} ms vs plain "
               f"{s['plain_ms']:.4f} ms, module path {s['module_ms']:.4f} ms, "
               f"bound {s['bound_ms']:.4f} ms by {s['bound_by']}; fp32 "
-              f"{s['ms_fp32']:.4f} ms vs plain {s['plain_ms_fp32']:.4f} ms")
+              f"{s['ms_fp32']:.4f} ms vs plain {s['plain_ms_fp32']:.4f} ms; "
+              f"on the device {s['device_ms']:.4f} ms; {share_text(s)}")
     # gradient: kernel forward, recomputed plain backward, against autograd
     # through the twin (fp32, mask decoder's site)
     grads = []
@@ -1331,7 +1362,7 @@ def check_twoway() -> dict:
         key: out["mask_decoder"][key]
         for key in ("instances", "max_abs_err", "max_abs_err_bf16",
                     "bf16_floor", "ms", "plain_ms", "module_ms", "ms_fp32",
-                    "bound_ms", "bound_by")}
+                    "device_ms", "bound_ms", "bound_by")}
     return {"fused_twoway": summary}
 
 

@@ -23,9 +23,11 @@
 //   dh = 80 a thread holds 40 output and 32 score accumulators and 20 q
 //   fragments; the K / V tiles cost 2 x 11 KB and the fp32 r rows 33 KB a
 //   block, three blocks an SM. As in relpos_global.cu, mma.sync and a
-//   barrier per 64-key tile keep it under the tensor-core rate; wgmma and
-//   bulk copies are the next step. A key grid whose rows are 64 wide takes
-//   the instance that reads the bias without a division.
+//   barrier per 64-key tile keep it under the tensor-core rate. A key grid
+//   whose rows are 64 wide takes the instance that reads the bias without
+//   a division; in bf16 at dh 80 such grids (kh even up to 64: ViT-H at
+//   1024 px) go to the wgmma kernel of relpos_packed_sm90.cu instead
+//   (ops/flash_attention.py's packed_global_kernel chooses the entry).
 // * bf16, windowed: relpos_window.cuh's window_tc_kernel, the design of
 //   the 64-wide windowed kernel (relpos_window.cu) as a template on the head
 //   width, on these strides: keys in slots by key-grid row (14 x 16 = 224

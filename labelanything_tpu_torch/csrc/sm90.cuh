@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the hand-written wgmma / TMA
-// kernels (flash_wgmma.cu, relpos_global_bwd.cu): mbarriers whose waits
-// trap instead of hanging, 4-D TMA tile loads and 1-D bulk copies into
-// shared memory, wgmma issue / commit / wait and register fences, the
-// shared-memory matrix descriptor of 128-byte-swizzled (or, at 32-byte
-// rows, 64-byte-swizzled) operand tiles, the wgmma shapes the kernels use,
-// and TMA tensor maps encoded over strided operands through the runtime's
-// driver entry point (nothing links against the driver).
+// kernels (flash_wgmma.cu, relpos_global_bwd.cu, relpos_packed_sm90.cuh):
+// mbarriers whose waits trap instead of hanging, 4-D TMA tile loads and 1-D
+// bulk copies into shared memory, wgmma issue / commit / wait and register
+// fences, the shared-memory matrix descriptor of 128-byte-swizzled (or, at
+// 32-byte rows, 64-byte-swizzled) operand tiles and of tiles at any swizzle,
+// the wgmma shapes the kernels use, and TMA tensor maps encoded over strided
+// operands through cudaGetDriverEntryPoint (nothing links against
+// libcuda).
 #pragma once
 
 #include <cuda.h>
@@ -271,6 +272,68 @@ __device__ __forceinline__ void pv_mma(float (&o)[DH / 2], uint32_t a0,
     wgmma_m64n32k16_rs(o, a0, a1, a2, a3, db);
   else
     wgmma_m64n64k16_rs(o, a0, a1, a2, a3, db);
+}
+
+// Shared-memory matrix descriptor of a wgmma operand tile written by the TMA
+// with a swizzle of kSwizzle bytes (32, 64 or 128): `lbo` is the byte
+// stride between swizzle atoms along M or N of an MN-major operand (unused
+// where the operand is one atom wide or K-major), `sbo` the byte stride
+// between groups of 8 rows (K-major) or of 8 K-rows (MN-major).
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t make_desc_sw(const void* smem, uint32_t lbo,
+                                                 uint32_t sbo) {
+  static_assert(kSwizzle == 32 || kSwizzle == 64 || kSwizzle == 128,
+                "a swizzle of 32, 64 or 128 bytes");
+  constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
+  uint64_t d = (smem_u32(smem) & 0x3FFFF) >> 4;
+  d |= uint64_t((lbo >> 4) & 0x3FFF) << 16;
+  d |= uint64_t((sbo >> 4) & 0x3FFF) << 32;
+  d |= kLayout << 62;
+  return d;
+}
+
+// D (64 x n, fp32, accumulators d[OFF] .. of a longer array) += A (64 x 16,
+// bf16 A fragments in registers) . B (16 x n, MN-major in shared memory)
+
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_at(float (&d)[N], uint32_t a0,
+                                                     uint32_t a1, uint32_t a2,
+                                                     uint32_t a3, uint64_t db) {
+  static_assert(OFF + 32 <= N, "accumulators out of range");
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
+        "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_m64n16k16_rs_at(float (&d)[N], uint32_t a0,
+                                                     uint32_t a1, uint32_t a2,
+                                                     uint32_t a3, uint64_t db) {
+  static_assert(OFF + 8 <= N, "accumulators out of range");
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
 // cuTensorMapEncodeTiled, found through the runtime so that the library

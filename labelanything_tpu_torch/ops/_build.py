@@ -25,13 +25,13 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 SOURCES = ("relpos_global.cu", "relpos_window.cu", "relpos_global_bwd.cu",
-           "relpos_window_bwd.cu", "relpos_packed.cu",
+           "relpos_window_bwd.cu", "relpos_packed.cu", "relpos_packed_sm90.cu",
            "relpos_packed_variants.cu", "fused_twoway.cu",
            "flash_attention.cu", "flash_wgmma.cu", "fused_window.cu",
            "relpos_global_int8.cu")
 HEADERS = ("relpos_common.cuh", "relpos_mma.cuh", "relpos_bwd.cuh",
-           "relpos_packed.cuh", "relpos_window.cuh", "sm90.cuh",
-           "fused_twoway_fp32.cuh", "fused_twoway_tc.cuh")
+           "relpos_packed.cuh", "relpos_packed_sm90.cuh", "relpos_window.cuh",
+           "sm90.cuh", "fused_twoway_fp32.cuh", "fused_twoway_tc.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
@@ -87,12 +87,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # qkv r out dout lse delta dqkv dr
         fn.argtypes = [p, p, p, p, p, p, p, p] + dims
         fn.restype = i
-    for name in ("la_relpos_packed_global", "la_relpos_packed_window",
-                 "la_relpos_packed_onehot", "la_relpos_packed_bf16exp"):
+    # qkv r out; b n heads kh kw dh scale bf16 strides[9] stream
+    packed = [p, p, p, i, i, i, i, i, i, ctypes.c_float, i,
+              ctypes.POINTER(ctypes.c_longlong), p]
+    for name in ("la_relpos_packed_global", "la_relpos_packed_global_wgmma",
+                 "la_relpos_packed_window", "la_relpos_packed_onehot",
+                 "la_relpos_packed_bf16exp"):
         fn = getattr(lib, name)
-        # qkv r out; b n heads kh kw dh scale bf16 strides[9] stream
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float, i,
-                       ctypes.POINTER(ctypes.c_longlong), p]
+        fn.argtypes = packed
         fn.restype = i
     # keys queries key_pe params q_out k_out scratch; g s n d heads mlp depth
     # downsample bf16 stream

@@ -20,7 +20,8 @@ in CUDA C++ for Hopper replace the TPU's Pallas kernels. For heads 64 wide
   forward ``csrc/relpos_window.cu`` (keys laid out by key-grid rows in
   shared memory, a warp for each 16-row query tile, two blocks a (window,
   head) in bf16; fp32 in TF32 with the three-product split), backward
-  ``csrc/relpos_window_bwd.cu``.
+  ``csrc/relpos_window_bwd.cu`` (in bf16 a query cut and a key cut on the
+  same slot layout, :func:`window_bwd_kernels`).
 
 Both keep the JAX signature ``(qkv, r, scale, grid_hw, heads)``:
 
@@ -42,7 +43,10 @@ callers that hold q, k and v apart:
   kh + kw), returns (B, heads, N, dh); ``csrc/relpos_packed.cu``, the
   windowed kernel (the template of ``csrc/relpos_window.cuh`` that K2 also
   runs) for windows up to 16 x 16 (:func:`packed_route`) and the global
-  one for any other grid. The kernels take
+  one for any other grid, which in bf16 at heads 80 wide on key grids with
+  rows 64 wide (ViT-H at 1024 px) runs on TMA and wgmma
+  (``csrc/relpos_packed_sm90.cu``, :func:`packed_global_kernel`). The
+  kernels take
   strides, so ``qkv`` may be the projection viewed token-major (no relayout
   copy), and the output then lies token-major too. Its backward is the
   plain one on any device, as in the JAX package;
@@ -108,6 +112,9 @@ FLASH_HEAD_DIMS = (32, 64, 128, 256)  # and the plain flash kernels
 # head widths of the Hopper flash kernel (wgmma, TMA); the others take the
 # mma.sync kernel of flash_attention.cu
 WGMMA_HEAD_DIMS = (32, 64)
+# head widths of the packed global kernel on Hopper (TMA, wgmma:
+# csrc/relpos_packed_sm90.cu); the others take the mma.sync kernel
+WGMMA_PACKED_HEAD_DIMS = (80,)
 _WINDOW_MAX_N = 256
 _MAX_GRID_YZ = 65535  # CUDA's limit on a launch grid's y and z extents
 _MAX_RR = 256     # kh + kw bound of the kernels' shared-memory r rows
@@ -354,6 +361,42 @@ def packed_route(n: int, grid_hw: Tuple[int, int]) -> str:
     return "relpos_packed_global"
 
 
+def packed_global_kernel(dtype: torch.dtype, dh: int,
+                         grid_hw: Tuple[int, int]) -> str:
+    """The CUDA kernel that the packed global route runs, by its name in a
+    profiler trace: ``packed_global_wgmma_kernel`` (TMA and wgmma,
+    ``la_relpos_packed_global_wgmma``) in bf16 at a head width of
+    :data:`WGMMA_PACKED_HEAD_DIMS` on a key grid whose rows are 64 wide with
+    kh even from 2 to 64 (ViT-H at 1024 px: 64 x 64), so that its key
+    tiles are whole key-grid rows (two a tile) and its 128-row blocks are
+    full;
+    ``packed_global_tc_kernel`` (mma.sync, ``la_relpos_packed_global``) in
+    bf16 otherwise; ``packed_kernel`` (CUDA cores) in fp32."""
+    kh, kw = grid_hw
+    if dtype != torch.bfloat16:
+        return "packed_kernel"
+    if (dh in WGMMA_PACKED_HEAD_DIMS and kw == 64 and kh % 2 == 0
+            and 2 <= kh <= 64):
+        return "packed_global_wgmma_kernel"
+    return "packed_global_tc_kernel"
+
+
+def window_bwd_kernels(dtype: torch.dtype, grid_hw: Tuple[int, int]
+                       ) -> Tuple[str, str, str]:
+    """The CUDA kernels of the windowed backward (``la_relpos_window_bwd``)
+    by their names in a profiler trace: the delta pre-pass, the query cut
+    (dQ, dr) and the key cut (dK, dV). bf16 takes the cuts on the forward's
+    slot layout, ``window_dq_kernel`` and ``window_dkv_kernel``; fp32 the
+    CUDA-core cuts of the global backward. A window past 16 x 16 raises, as
+    the forward does (:func:`window_grid_ok`)."""
+    if not window_grid_ok(grid_hw):
+        raise ValueError(f"the windowed kernels take windows up to 16 x 16, "
+                         f"got {tuple(grid_hw)}")
+    if dtype == torch.bfloat16:
+        return ("delta_kernel", "window_dq_kernel", "window_dkv_kernel")
+    return ("delta_kernel", "bwd_dq_f32_kernel", "bwd_dkv_f32_kernel")
+
+
 def _check_launch(kernel: str, **tensors: torch.Tensor) -> None:
     for name, x in tensors.items():
         if x.device.type != "cuda":
@@ -422,6 +465,8 @@ def _launch_bwd(kernel: str, qkv: torch.Tensor, r: torch.Tensor,
     """Backward kernel ``la_<kernel>_bwd``: (dqkv, dr)."""
     name = kernel + "_bwd"
     _check_launch(name, qkv=qkv, r=r, out=out, dout=dout, lse=lse)
+    if kernel == "relpos_window":
+        window_bwd_kernels(qkv.dtype, grid_hw)
     if dout.dtype != qkv.dtype or dout.shape != out.shape:
         raise TypeError(f"dout must be {tuple(out.shape)} {qkv.dtype}, got "
                         f"{tuple(dout.shape)} {dout.dtype}")
@@ -530,10 +575,12 @@ def _token_major(x: torch.Tensor) -> bool:
 
 
 def _launch_packed(kernel: str, qkv: torch.Tensor, r: torch.Tensor,
-                   scale: float, grid_hw: Tuple[int, int], heads: int
-                   ) -> torch.Tensor:
+                   scale: float, grid_hw: Tuple[int, int], heads: int,
+                   route: bool = True) -> torch.Tensor:
     """Packed kernel ``la_<kernel>`` on strided operands: out (B, heads, N,
-    dh), laid out token-major when ``qkv`` is."""
+    dh), laid out token-major when ``qkv`` is. With ``route``, the global
+    kernel goes where :func:`packed_global_kernel` says; without it,
+    ``la_relpos_packed_global`` (the mma.sync kernel) takes every grid."""
     b, _, n, dh = qkv.shape
     kh, kw = grid_hw
     for name, x in (("qkv", qkv), ("r", r)):
@@ -564,13 +611,17 @@ def _launch_packed(kernel: str, qkv: torch.Tensor, r: torch.Tensor,
                           device=qkv.device)
     strides = (ctypes.c_longlong * 9)(*qkv.stride()[:3], *r.stride()[:3],
                                       *out.stride()[:3])
+    entry = "la_" + kernel
+    if (route and kernel == "relpos_packed_global" and packed_global_kernel(
+            qkv.dtype, dh, grid_hw) == "packed_global_wgmma_kernel"):
+        entry = "la_relpos_packed_global_wgmma"
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, "la_" + kernel)(
+        err = getattr(lib, entry)(
             qkv.data_ptr(), r.data_ptr(), out.data_ptr(), b, n, heads, kh, kw,
             dh, ctypes.c_float(scale), int(qkv.dtype == torch.bfloat16),
             strides, stream)
-    _build.check(lib, err, "la_" + kernel)
+    _build.check(lib, err, entry)
     LAUNCHES[kernel] += 1
     return out
 

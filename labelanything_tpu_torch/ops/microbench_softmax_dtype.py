@@ -3,12 +3,15 @@ card (counterpart of ``scripts/microbench_softmax_dtype.py``).
 
     python -m labelanything_tpu_torch.ops.microbench_softmax_dtype [--batch 8]
 
-The packed global kernel (``csrc/relpos_packed.cuh``) compiled three ways:
+The mma.sync packed global kernel (``csrc/relpos_packed.cuh``) compiled
+three ways:
 
 a. the bias expanded by a one-hot ``mma`` into the score accumulators
    (``la_relpos_packed_onehot``);
-e. the bias added from the query row's r values, exponentials in fp32: the
-   shipped kernel (``la_relpos_packed_global``);
+e. the bias added from the query row's r values, exponentials in fp32
+   (``la_relpos_packed_global``, launched past the route, which sends bf16
+   at 64-wide key-grid rows to the wgmma kernel of
+   ``csrc/relpos_packed_sm90.cuh``, so that the three stay one kernel);
 f. e with the exponentials two at a time in bf16
    (``ex2.approx.ftz.bf16x2``), P never held in fp32, the row sums from one
    more ``mma`` against a column of ones (``la_relpos_packed_bf16exp``).
@@ -47,7 +50,8 @@ def run_variant(qkv: torch.Tensor, r: torch.Tensor, scale: float,
     """The packed global kernel in variant ``mode`` ("a", "e" or "f") on
     CUDA tensors; arguments as ``flash_attention_relpos_packed``."""
     fa._check_packed(qkv, r, grid_hw, heads)
-    return fa._launch_packed(VARIANTS[mode], qkv, r, scale, grid_hw, heads)
+    return fa._launch_packed(VARIANTS[mode], qkv, r, scale, grid_hw, heads,
+                             route=False)
 
 
 def inputs(batch: int, heads: int, dh: int, seed: int = 0

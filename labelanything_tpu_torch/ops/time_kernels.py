@@ -1,15 +1,16 @@
 """Device time of the forward kernels at their main paths' shapes (ViT-B's
 lanes kernels, the windowed one also at 200 windows and at ViT-L's 16
-heads, ViT-H's packed kernels, the windowed one also at 200 windows, the
-backward kernels at the training step's 6 images, the fused
-TwoWayTransformer at the episode-decode path's two call sites: 96
-prompt-encoder instances and 16 mask-decoder instances of 900 image tokens against 6 tokens, bf16, and the
-plain flash kernel at the affinity decoder's call: 6 x 8 heads of 4096
-queries against 8192 keys, 32 wide, bf16 and fp32; the global kernel with
-int8 scores beside it at ViT-B's global block; the fused windowed block at
-one 1024-px image's windowed block of ViT-B, ViT-L and ViT-H, beside the
-unfused kernel path that it replaces), for comparing two checkouts on one
-card.
+heads; ViT-H's packed kernels, the windowed one also at 200 windows and
+the global one also at the embedding batch of 8 images; the backward
+kernels at the training step's 6 images, with each kernel of a backward call by name; the
+fused TwoWayTransformer at the episode-decode path's two call sites: 96
+prompt-encoder instances and 16 mask-decoder instances of 900 image tokens
+against 6 tokens, bf16; the plain flash kernel at the affinity decoder's
+call: 6 x 8 heads of 4096 queries against 8192 keys, 32 wide, bf16 and
+fp32; the global kernel with int8 scores beside it at ViT-B's global block;
+the fused windowed block at one 1024-px image's windowed block of ViT-B,
+ViT-L and ViT-H, beside the unfused kernel path that it replaces), for
+comparing two checkouts on one card.
 
     python labelanything_tpu_torch/ops/time_kernels.py [--root DIR] [--label X]
 
@@ -43,6 +44,7 @@ SHAPES = {"relpos_global": (1, (64, 64), 12, 64),
           "relpos_window_b200": (200, (14, 14), 12, 64),
           "relpos_window_heads16": (25, (14, 14), 16, 64),
           "relpos_packed_global": (1, (64, 64), 16, 80),
+          "relpos_packed_global_b8": (8, (64, 64), 16, 80),
           "relpos_packed_window": (25, (14, 14), 16, 80),
           "relpos_packed_window_b200": (200, (14, 14), 16, 80)}
 
@@ -227,9 +229,42 @@ def time_fused_window(opts) -> None:
                 card=torch.cuda.get_device_name(0))))
 
 
+def kernel_events(call, calls: int = 20) -> list:
+    """The profiler's CUDA kernel records, one a kernel name, over
+    ``calls`` calls of ``call`` (after a warm-up call): ``key`` the name,
+    ``count`` the launches seen, ``self_device_time_total`` their device
+    time in us. The pass may miss a launch at its end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_names(call, calls: int = 20) -> dict:
+    """Launches seen of each CUDA kernel that ``call`` launches, by name
+    (count on the names: a profiler pass may miss a launch at its end)."""
+    return {e.key: e.count for e in kernel_events(call, calls)}
+
+
+def kernel_ms(call, calls: int = 20) -> dict:
+    """Device ms a launch of each CUDA kernel that ``call`` launches, by
+    name (the signature cut at its argument list), averaged over the
+    launches a profiler pass over ``calls`` calls saw."""
+    return {e.key.split("(")[0].replace("void ", ""):
+            e.self_device_time_total / 1e3 / e.count
+            for e in kernel_events(call, calls)}
+
+
 def time_backward(opts) -> None:
     """K3 and K4 at the training step's shapes: the forward kernel with its
-    log-sum-exp once, then backward launches back to back (20 a run)."""
+    log-sum-exp once, then backward launches back to back (20 a run), and
+    each of the backward's kernels by name from a profiler pass."""
     from labelanything_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(1)
@@ -241,14 +276,13 @@ def time_backward(opts) -> None:
         dout = f(b, n, heads * dh)
         args = (dh ** -0.5, (kh, kw), heads)
         out, lse = fa._launch(kernel, qkv, r, *args, want_lse=True)
-        median, least, per_call = device_and_call_ms(
-            lambda: fa._launch_bwd(kernel, qkv, r, out, dout, lse, *args),
-            20, opts.repeats)
+        call = lambda: fa._launch_bwd(kernel, qkv, r, out, dout, lse, *args)
+        median, least, per_call = device_and_call_ms(call, 20, opts.repeats)
         print(json.dumps(dict(
             label=opts.label, kernel=kernel + "_bwd", batch=b,
             grid=[kh, kw], heads=heads, device_ms_per_launch=median,
             device_ms_min=least, call_ms_median=per_call,
-            card=torch.cuda.get_device_name(0))))
+            parts_ms=kernel_ms(call), card=torch.cuda.get_device_name(0))))
 
 
 def time_int8(opts) -> None:

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from labelanything_tpu_torch.ops import flash_attention as fa
+from labelanything_tpu_torch.ops import time_kernels as tk
 
 pytestmark = pytest.mark.cuda
 
@@ -171,7 +172,9 @@ def test_kernel_rejects_bad_input(cuda):
         fa.flash_attention_relpos_lanes(qkv.half(), r.half(), 0.125, (8, 8), 2)
 
 
-@pytest.mark.parametrize("kind,b,grid_hw,heads", CASES)
+@pytest.mark.parametrize("kind,b,grid_hw,heads", CASES + [
+    ("window", 150, (14, 14), 12),   # the training step's windows
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernel_matches_plain(cuda, kind, b, grid_hw, heads, dtype):
     """K3 / K4 against the plain backward on the same inputs, saved output
@@ -207,16 +210,21 @@ def test_backward_kernel_matches_plain(cuda, kind, b, grid_hw, heads, dtype):
             assert ok, (diff, floor)
 
 
-@pytest.mark.parametrize("b,grid_hw,heads", [
-    (2, (32, 32), 4),
-    (2, (16, 64), 3),    # 64-wide key-grid rows: the wgmma backward
+@pytest.mark.parametrize("kind,b,grid_hw,heads", [
+    ("global", 2, (32, 32), 4),
+    ("global", 2, (16, 64), 3),    # 64-wide key-grid rows: the wgmma backward
+    ("window", 25, (14, 14), 12),  # the query and key cuts on the slots
+    ("window", 4, (7, 7), 2),      # key-grid rows of 8 slots
+    ("window", 3, (16, 16), 2),
 ])
-def test_backward_kernel_is_deterministic(cuda, b, grid_hw, heads):
+def test_backward_kernel_is_deterministic(cuda, kind, b, grid_hw, heads):
     """No atomics: two runs give bit-identical gradients."""
+    fn = (fa.flash_attention_relpos_lanes if kind == "global"
+          else fa.flash_attention_relpos_lanes_batched)
     qkv, r = _inputs(b, grid_hw, heads, torch.bfloat16, cuda)
     qkv.requires_grad_()
     r.requires_grad_()
-    out = fa.flash_attention_relpos_lanes(qkv, r, 0.125, grid_hw, heads)
+    out = fn(qkv, r, 0.125, grid_hw, heads)
     ct = torch.ones_like(out)
     first = torch.autograd.grad(out, (qkv, r), ct, retain_graph=True)
     second = torch.autograd.grad(out, (qkv, r), ct)
@@ -269,6 +277,9 @@ PACKED_CASES = [
     (3, (16, 16), 2, 80),      # windowed, the 16 x 16 maximum at dh 80
     (2, (4, 20), 2, 80),       # N <= 256 on a grid the windowed kernel
                                # refuses: the global kernel
+    (8, (64, 64), 16, 80),     # ViT-H's embedding batch of 8 images
+    (1, (2, 64), 2, 80),       # the smallest grid the wgmma kernel takes
+    (1, (7, 64), 2, 80),       # 64-wide rows it refuses (kh odd): mma.sync
 ]
 
 
@@ -300,6 +311,38 @@ def test_packed_kernel_matches_plain(cuda, b, grid_hw, heads, dh,
     other = fa.flash_attention_relpos_packed(qb.contiguous(), rb.contiguous(),
                                              *args)
     assert torch.equal(other, out_b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid_hw,dh", [((64, 64), 80), ((2, 64), 80),
+                                        ((7, 64), 80), ((48, 48), 80),
+                                        ((16, 64), 64)])
+def test_packed_global_runs_the_kernel_of_its_rule(cuda, grid_hw, dh, dtype):
+    """The packed global route launches the kernel that
+    ``packed_global_kernel`` names, and no other."""
+    qkv, r = _packed_inputs(1, grid_hw, 2, dh, dtype, cuda, True)
+    names = tk.kernel_names(lambda: fa.flash_attention_relpos_packed(
+        qkv, r, dh ** -0.5, grid_hw, 2), calls=3)
+    want = fa.packed_global_kernel(dtype, dh, grid_hw)
+    assert len(names) == 1 and want in next(iter(names)), (want, names)
+
+
+@pytest.mark.parametrize("b,grid_hw,heads", [(150, (14, 14), 12),
+                                             (4, (7, 7), 2)])
+def test_window_backward_runs_the_kernels_of_its_rule(cuda, b, grid_hw,
+                                                      heads):
+    """The windowed backward launches the three kernels that
+    ``window_bwd_kernels`` names, in both dtypes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv, r = _inputs(b, grid_hw, heads, dtype, cuda)
+        args = (0.125, grid_hw, heads)
+        out, lse = fa._launch("relpos_window", qkv, r, *args, want_lse=True)
+        ct = torch.ones_like(out)
+        names = tk.kernel_names(lambda: fa._launch_bwd(
+            "relpos_window", qkv, r, out, ct, lse, *args), calls=3)
+        want = fa.window_bwd_kernels(dtype, grid_hw)
+        assert len(names) == 3 and all(
+            any(w in name for name in names) for w in want), (want, names)
 
 
 def test_packed_kernel_gradient_and_unpacked_entry(cuda):
@@ -344,13 +387,18 @@ def test_packed_kernel_rejects_bad_input(cuda):
         fa.flash_attention_relpos_packed(shifted, r, 0.1, (8, 8), 2)
     with pytest.raises(TypeError):
         fa.flash_attention_relpos_packed(qkv.half(), r.half(), 0.1, (8, 8), 2)
+    # the wrapper's 16-byte check guards the wgmma route too (the TMA's rule)
+    qkv, r = _packed_inputs(1, (2, 64), 2, 80, torch.bfloat16, cuda, False)
+    shifted = torch.cat([qkv, qkv], -1)[..., 4:84]
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_relpos_packed(shifted, r, 0.1, (2, 64), 2)
     assert not any(fa.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("heads,dh", [(12, 64), (16, 80)])
 def test_microbench_variants_match_plain(cuda, heads, dh):
-    """The score-dtype microbench's variants of the packed global kernel
-    within 4 x the bf16 floor of the plain twin (``errors`` raises
+    """The score-dtype microbench's variants of the mma.sync packed global
+    kernel within 4 x the bf16 floor of the plain twin (``errors`` raises
     otherwise), each through its own kernel."""
     from labelanything_tpu_torch.ops import microbench_softmax_dtype as mb
 
@@ -360,6 +408,12 @@ def test_microbench_variants_match_plain(cuda, heads, dh):
     for mode, kernel in mb.VARIANTS.items():
         assert fa.LAUNCHES[kernel] == 1, (mode, fa.LAUNCHES)
     qkv, r = mb.inputs(1, heads, dh)
+    # e is the mma.sync kernel that a and f vary, also where the route
+    # would take the wgmma kernel
+    names = tk.kernel_names(lambda: mb.run_variant(
+        qkv, r, dh ** -0.5, mb.GRID, heads, "e"), calls=3)
+    assert len(names) == 1 and "packed_global_tc_kernel" in next(
+        iter(names)), names
     with pytest.raises(RuntimeError, match="failed to launch"):
         # the variants take only key grids whose rows are 64 wide
         mb.run_variant(qkv[:, :, :48 * 48], r[:, :, :48 * 48, :96],

@@ -243,6 +243,59 @@ def test_window_kernel_grid_rule(grid_hw, expected):
         assert kh * width <= 256
 
 
+@pytest.mark.parametrize("dtype,dh,grid_hw,expected", [
+    # ViT-H's global blocks at 1024 px, and the smallest grid taken
+    (torch.bfloat16, 80, (64, 64), "packed_global_wgmma_kernel"),
+    (torch.bfloat16, 80, (2, 64), "packed_global_wgmma_kernel"),
+    (torch.bfloat16, 80, (8, 64), "packed_global_wgmma_kernel"),
+    # rows 64 wide that the wgmma kernel refuses: kh odd (a ragged 128-row
+    # block and key tile) or past 64
+    (torch.bfloat16, 80, (7, 64), "packed_global_tc_kernel"),
+    (torch.bfloat16, 80, (66, 64), "packed_global_tc_kernel"),
+    # other rows (768 px: 48 x 48), another head width, fp32
+    (torch.bfloat16, 80, (48, 48), "packed_global_tc_kernel"),
+    (torch.bfloat16, 80, (64, 32), "packed_global_tc_kernel"),
+    (torch.bfloat16, 64, (64, 64), "packed_global_tc_kernel"),
+    (torch.float32, 80, (64, 64), "packed_kernel"),
+])
+def test_packed_global_kernel_rule(dtype, dh, grid_hw, expected):
+    """The packed global route's kernel by dtype, head width and key grid:
+    TMA and wgmma where a key tile is two whole key-grid rows and the
+    128-row blocks are full, the mma.sync kernel for other bf16 calls."""
+    assert tfa.packed_global_kernel(dtype, dh, grid_hw) == expected
+    kh, kw = grid_hw
+    if expected == "packed_global_wgmma_kernel":
+        assert kw == 64 and kh * kw % 128 == 0
+        assert dh in tfa.WGMMA_PACKED_HEAD_DIMS
+    assert tfa.packed_route(kh * kw, grid_hw) == "relpos_packed_global"
+
+
+@pytest.mark.parametrize("dtype,grid_hw,expected", [
+    (torch.bfloat16, (14, 14), "window"),    # SAM's windows, the step's
+    (torch.bfloat16, (7, 7), "window"),      # key-grid rows of 8 slots
+    (torch.bfloat16, (16, 16), "window"),    # the 256-token maximum
+    (torch.bfloat16, (3, 3), "window"),
+    (torch.float32, (14, 14), "f32"),
+    (torch.float32, (16, 9), "f32"),
+    (torch.bfloat16, (17, 9), None),         # past 16 x 16: raises
+    (torch.float32, (8, 17), None),
+])
+def test_window_bwd_kernels_rule(dtype, grid_hw, expected):
+    """The windowed backward's kernels by dtype: the delta pre-pass, then
+    the query and key cuts on the slot layout in bf16 or the CUDA-core cuts
+    in fp32; a window the forward refuses raises here too."""
+    if expected is None:
+        assert not tfa.window_grid_ok(grid_hw)
+        with pytest.raises(ValueError, match="16 x 16"):
+            tfa.window_bwd_kernels(dtype, grid_hw)
+        return
+    kernels = tfa.window_bwd_kernels(dtype, grid_hw)
+    assert kernels[0] == "delta_kernel" and len(kernels) == 3
+    assert kernels[1:] == (("window_dq_kernel", "window_dkv_kernel")
+                           if expected == "window" else
+                           ("bwd_dq_f32_kernel", "bwd_dkv_f32_kernel"))
+
+
 def test_window_grid_outside_the_kernel_takes_the_twin_on_cpu():
     """A key grid the windowed kernel does not take still runs on the CPU
     (the plain twin), with the twin's result."""
