@@ -25,7 +25,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    backward for a backward kernel) are timed, per wrapper call and, for
    kernel and library call, on the device (back-to-back launches between
    two events), each kernel's ratio to its call printed, and the least
-   time the card could take is reckoned from the shapes. The windowed
+   time the card could take is reckoned from the shapes. The global
+   kernel (K1, in bf16 at 1024 px the wgmma kernel that ``global_kernel``
+   names, found by name in a profiler pass) is held again at 1, 6 and 8
+   images with ViT-B's 12 and ViT-L's 16 heads, on its output and on the
+   log-sum-exp it writes for the backward, and timed at the training
+   step's 6 images with the log-sum-exp and at the embedding batch of 8.
+   The windowed
    kernel (K2) is held and timed again at the embedding batch's 200
    windows and at ViT-L's 16 heads. The global kernels take a
    shorter bias path when a row of the key grid is 64 wide, as at 1024 px;
@@ -44,7 +50,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    of the packed global kernel against the twin, timed. The fused
    TwoWayTransformer kernel is held against ``twoway_plain`` at the
    decode path's two call sites (96 and 16 instances of 900 image tokens
-   against 6 tokens, width 256), both outputs, fp32 and bf16 by the same
+   against 6 tokens, width 256; in bf16 one instance a cluster of the
+   blocks ``twoway_cluster`` gives, 1 and 4 on the H100), both outputs,
+   fp32 and bf16 by the same
    rules, with a gradient through its autograd function against autograd
    through the twin; kernel, twin and the module path are timed. The plain
    flash kernel is held against ``flash_attention_plain`` at the affinity
@@ -276,7 +284,7 @@ _SRC = "labelanything_tpu_torch/csrc/"
 _JAX = "labelanything_tpu/ops/flash_attention.py:"
 KERNELS = [
     dict(name="relpos_global", fn=fa.flash_attention_relpos_lanes, b=1,
-         grid=(64, 64), backward=False, source=_SRC + "relpos_global.cu",
+         grid=(64, 64), backward=False, source=_SRC + "relpos_packed_sm90.cu",
          replaces=_JAX + "1318"),
     dict(name="relpos_window", fn=fa.flash_attention_relpos_lanes_batched,
          b=25, grid=(14, 14), backward=False,
@@ -288,6 +296,20 @@ KERNELS = [
          b=150, grid=(14, 14), backward=True,
          source=_SRC + "relpos_window_bwd.cu", replaces=_JAX + "901"),
 ]
+# K1 besides a request's image with ViT-B's 12 heads: ViT-L's 16 heads,
+# the training step's 6 images (the log-sum-exp written) and the embedding
+# batch of 8 images; every shape is held on out and log-sum-exp, the
+# timed ones are timed as their path launches them (with the log-sum-exp
+# at the step's shape, without at the others)
+GLOBAL_MORE = {"vit_l_heads16": dict(KERNELS[0], heads=16, timed=False),
+               "b6_lse": dict(KERNELS[0], b=6, lse=True, timed=True),
+               "b6_heads16_lse": dict(KERNELS[0], b=6, heads=16, lse=True,
+                                      timed=True),
+               "b8": dict(KERNELS[0], b=8, timed=True),
+               "b8_heads16": dict(KERNELS[0], b=8, heads=16, timed=True)}
+# |lse - twin's lse| <= LSE_TOL (1 + |twin's lse|): the kernel sums in
+# fp32 over 4096 keys what the twin sums in fp64
+LSE_TOL = 1e-4
 # K2 besides the request's 25 windows: the embedding batch (8 images, 200
 # windows) and ViT-L's 16 heads; timed and held against the twins
 WINDOW_MORE = {"b200": dict(KERNELS[1], b=200),
@@ -471,6 +493,8 @@ def bound(k: dict) -> dict:
     else:
         flops = 4 * b * heads * n * n * dh
         nbytes = 2 * b * n * (3 * c + r_width + c)
+    if k.get("lse"):
+        nbytes += 4 * b * heads * n
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -599,6 +623,68 @@ def check_forward(k: dict, timed: bool = True) -> dict:
         plain_ms_fp32=median_ms(lambda: plain(qkv, r, *args)),
         device_ms_fp32=device_ms(lambda: fn(qkv, r, *args), 50),
         plain_device_ms_fp32=device_ms(lambda: plain(qkv, r, *args), 20))
+
+
+def check_global_route(k: dict) -> tuple:
+    """The lanes global route in bf16 launches the kernel that
+    ``global_kernel`` names for ``k``'s grid, and no other, over 20 calls
+    of a profiler pass; returns that kernel's name and the launches the
+    pass saw (it may miss one at its end)."""
+    qkv, r, _ = kernel_inputs(k)
+    qb, rb = qkv.bfloat16(), r.bfloat16()
+    with torch.no_grad():
+        names = time_kernels.kernel_names(
+            lambda: k["fn"](qb, rb, *kernel_args(k)))
+    want = fa.global_kernel(torch.bfloat16, k["grid"])
+    check(len(names) == 1 and want in next(iter(names)),
+          f"{k['name']} b {k['b']} grid {k['grid']}: 20 calls launched "
+          f"{names}, its rule names {want}")
+    return want, next(iter(names.values()))
+
+
+def check_global(k: dict) -> dict:
+    """K1 in bf16 at one of its paths' shapes: out under the bf16 rule and
+    the log-sum-exp against the twin's (:data:`LSE_TOL`), both from one
+    launch that writes it; the launch without it gives the same out bits.
+    Where ``k`` is timed: the kernel as its path launches it (with the
+    log-sum-exp where ``k['lse']``), the twin and the library call, per
+    call and on the device."""
+    qkv, r, _ = kernel_inputs(k)
+    qb, rb = qkv.bfloat16(), r.bfloat16()
+    del qkv, r
+    args = kernel_args(k)
+    with torch.no_grad():
+        out, lse = fa._launch("relpos_global", qb, rb, *args, want_lse=True)
+        err, floor = forward_error(k, out, qb, rb)
+        ref = fa.relpos_lse_plain(qb, rb, *args)
+        lse_err = ((lse - ref).abs() / (1 + ref.abs())).max().item()
+        check(lse_err <= LSE_TOL, f"{k['name']} b {k['b']} heads "
+              f"{k.get('heads', HEADS)}: log-sum-exp error {lse_err} > "
+              f"{LSE_TOL}")
+        check(torch.equal(k["fn"](qb, rb, *args), out),
+              f"{k['name']} b {k['b']}: the launch without the log-sum-exp "
+              f"gives other bits")
+        del ref, lse
+    stats = dict(max_abs_err_bf16=err, bf16_floor=floor,
+                 lse_max_rel_err=lse_err, **bound(k))
+    if not k.get("timed"):
+        return stats
+    if k.get("lse"):
+        call = lambda: fa._launch("relpos_global", qb, rb, *args,
+                                  want_lse=True)
+    else:
+        call = lambda: k["fn"](qb, rb, *args)
+    with torch.no_grad():
+        stats.update(
+            ms=median_ms(call), device_ms=device_ms(call),
+            plain_ms=median_ms(lambda: fa.relpos_attention_plain(qb, rb,
+                                                                 *args),
+                               iters=5),
+            library_ms=median_ms(lambda: library_attention(qb, rb, k["grid"]),
+                                 iters=5),
+            library_device_ms=device_ms(
+                lambda: library_attention(qb, rb, k["grid"]), 20))
+    return stats
 
 
 def check_packed_layouts(k: dict, gradient: bool = True) -> dict:
@@ -1016,6 +1102,27 @@ def phase_kernels() -> dict:
         if "device_ms_fp32" in s:
             print(f"  fp32 on the device: {s['device_ms_fp32']:.4f} ms vs "
                   f"plain {s['plain_device_ms_fp32']:.4f} ms")
+    k1 = results["relpos_global"]
+    k1["kernel"], seen = check_global_route(KERNELS[0])
+    k1["lse_max_rel_err"] = check_global(KERNELS[0])["lse_max_rel_err"]
+    print(f"kernel relpos_global b 1 grid (64, 64): runs {k1['kernel']} "
+          f"(found by name in a profiler pass over 20 calls, {seen} "
+          f"launches seen); log-sum-exp error "
+          f"{k1['lse_max_rel_err']:.3g} of 1 + |lse|")
+    for label, k in GLOBAL_MORE.items():
+        s = k1[label] = check_global(k)
+        text = (f"kernel relpos_global {label}: b {k['b']}, "
+                f"{k.get('heads', HEADS)} heads: bf16 err "
+                f"{s['max_abs_err_bf16']:.3g} (floor "
+                f"{s['bf16_floor']:.3g}), log-sum-exp error "
+                f"{s['lse_max_rel_err']:.3g} of 1 + |lse|")
+        if k["timed"]:
+            text += (f"; {'with' if k.get('lse') else 'without'} the "
+                     f"log-sum-exp bf16 {s['ms']:.4f} ms vs plain "
+                     f"{s['plain_ms']:.4f} ms, library {s['library_ms']:.4f} "
+                     f"ms, bound {s['bound_ms']:.4f} ms by {s['bound_by']}; "
+                     f"{ratio_text(s)}; {share_text(s)}")
+        print(text)
     for label, k in WINDOW_MORE.items():
         s = results["relpos_window"][label] = dict(check_forward(k),
                                                    **bound(k))
@@ -1044,6 +1151,10 @@ def phase_kernels() -> dict:
         s = (check_backward if k["backward"] else check_forward)(k, False)
         if "dh" in k:
             check_packed_layouts(k)
+        elif not k["backward"]:
+            check(check_global_route(k)[0] == "relpos_global_tc_kernel",
+                  f"{k['name']} grid {k['grid']}: not the mma.sync "
+                  f"kernel")
         print(f"kernel {k['name']}, general bias path, b {k['b']} grid "
               f"{k['grid']}: fp32 err {s['max_abs_err']:.3g}, bf16 err "
               f"{s['max_abs_err_bf16']:.3g} (floor {s['bf16_floor']:.3g})")
@@ -1326,10 +1437,15 @@ def check_twoway() -> dict:
                     keys, queries, pe, *args), iters=5),
                 plain_ms_fp32=median_ms(lambda: ft.twoway_plain(
                     keys, queries, pe, *args), iters=5))
-        out[site] = dict(stats, instances=g, **twoway_bound(g))
+        capacity = ft.cluster_capacity(keys.device)
+        cluster = ft.twoway_cluster(g, k["s"], capacity)
+        out[site] = dict(stats, instances=g, cluster=cluster,
+                         **twoway_bound(g))
         s = out[site]
         print(f"kernel fused_twoway, {site}: {g} instances x {k['s']} image "
-              f"tokens x {k['n']} tokens: fp32 err {s['max_abs_err']:.3g}, "
+              f"tokens x {k['n']} tokens, bf16 in clusters of {cluster} "
+              f"blocks (clusters the card holds at once, by blocks: "
+              f"{capacity}): fp32 err {s['max_abs_err']:.3g}, "
               f"bf16 err {s['max_abs_err_bf16']:.3g} (floor "
               f"{s['bf16_floor']:.3g}); bf16 {s['ms']:.4f} ms vs plain "
               f"{s['plain_ms']:.4f} ms, module path {s['module_ms']:.4f} ms, "
@@ -1360,9 +1476,10 @@ def check_twoway() -> dict:
     summary = dict(out["prompt_encoder"])
     summary["mask_decoder_site"] = {
         key: out["mask_decoder"][key]
-        for key in ("instances", "max_abs_err", "max_abs_err_bf16",
-                    "bf16_floor", "ms", "plain_ms", "module_ms", "ms_fp32",
-                    "device_ms", "bound_ms", "bound_by")}
+        for key in ("instances", "cluster", "max_abs_err",
+                    "max_abs_err_bf16", "bf16_floor", "ms", "plain_ms",
+                    "module_ms", "ms_fp32", "device_ms", "bound_ms",
+                    "bound_by")}
     return {"fused_twoway": summary}
 
 

@@ -1,6 +1,7 @@
 // bf16 tensor-core instance of the fused TwoWayTransformer kernel (see
-// fused_twoway.cu for the design). Width 256, 8 heads, cross-attention
-// internal width 128 (head width 16), at most 8 tokens an instance.
+// fused_twoway.cu for the design): one instance is a thread-block cluster
+// of C blocks. Width 256, 8 heads, cross-attention internal width 128 (head
+// width 16), at most 8 tokens an instance.
 //
 // Fragment layouts are PTX's for mma.m16n8k16 (.row.col): lane = 4 g + t
 // holds rows g and g + 8; of A the columns 2t, 2t + 1 (a0, a1) and 2t + 8,
@@ -14,16 +15,19 @@
 // are rounded once a block, when the new keys are written.
 #pragma once
 
-#include <cstdint>
-
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "relpos_common.cuh"
+#include "sm90.cuh"
 
 namespace twoway {
 namespace tc {
 
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kD = 256;          // transformer width
@@ -34,13 +38,14 @@ constexpr int kDhSelf = kD / kHeads;   // 32
 constexpr int kTok = 8;          // token rows (the low half of an mma tile)
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16;        // image rows a warp takes at a time
+constexpr int kRows = 16;        // image rows of a tile: one a warp at a time
 constexpr int kLdD = kD + 8;     // bf16 row stride of 256-wide tiles: 528 B
 constexpr int kLdI = kI + 8;     // of 128-wide tiles: 272 B; both keep
                                  // ldmatrix rows on distinct banks
 constexpr int kLdTok = kD + 32;  // token operand rows: 16-byte loads of two
                                  // rows a quarter warp stay conflict-free
 constexpr int kMaxMlp = 2048;
+constexpr int kMaxCluster = 8;   // blocks an instance (portable clusters)
 constexpr float kEps = 1e-5f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -48,20 +53,26 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWBytes = kI * kLdD * 2 + kD * kLdI * 2;   // 137,216: two
                                  // weight matrices of a pass, or the token
                                  // stages' temporaries
-constexpr int kStageBytes = kWarps * kRows * kLdD * 2;    // 67,584
+constexpr int kSliceBytes = kWarps * kRows * kLdD * 2;    // 67,584: a warp's
+                                 // 16 image rows each
 constexpr int kQueriesBytes = kTok * kD * 4;              // 8,192
 constexpr int kTokBytes = kTok * kLdTok * 2;              // 4,608
 constexpr int kQtBytes = kTok * kLdI * 2;                 // 2,176
 constexpr int kVtBytes = kI * kTok * 2;                   // 2,048
-constexpr int kSmemBytes = kWBytes + kStageBytes + kQueriesBytes +
-                           2 * kTokBytes + kQtBytes + kVtBytes;
-// the token stages' temporaries inside the weight region
+constexpr int kSmemBytes = kWBytes + kSliceBytes + kQueriesBytes +
+                           2 * kTokBytes + kQtBytes + kVtBytes + 16;
+// inside the weight region: four fp32 (8, 256) token temporaries, the MLP's
+// hidden layer, and after a token-to-image walk the block's merged softmax
+// state, past the temporaries that other blocks write into; a warp's own
+// partial state goes to its slice
 constexpr int kTmpF = kTok * kD;                          // floats each
-constexpr int kHiddenOff = 3 * kTmpF * 4;                 // bytes
+constexpr int kHiddenOff = 4 * kTmpF * 4;                 // bytes
 static_assert(kHiddenOff + kTok * (kMaxMlp + 32) * 2 <= kWBytes, "hidden");
-// a warp's partial softmax state at the end of a token-to-image pass
-constexpr int kRedFloats = 2 * kHeads * kTok + kTok * kI;
-static_assert(kRedFloats * 4 <= kRows * kLdD * 2, "reduction slice");
+constexpr int kRedFloats = 2 * kHeads * kTok + kTok * kI;  // m, l, o
+static_assert(kRedFloats * 4 <= kRows * kLdD * 2, "a warp's state");
+constexpr int kBlockOff = 40960;                          // bytes
+static_assert(kBlockOff >= kHiddenOff, "block's state");
+static_assert(kBlockOff + kRedFloats * 4 <= kWBytes, "block's state");
 
 struct Attn {
   const bf16 *wq, *bq, *wk, *bk, *wv, *bv, *wo, *bo;
@@ -82,6 +93,12 @@ struct Cursor {
     a.wo = take(inner * kD); a.bo = take(kD);
     return a;
   }
+};
+
+// What a block knows of its cluster and its instance.
+struct Ctx {
+  int rank, csize;   // the block's rank in the cluster, the cluster's size
+  int s, n, tiles;   // image rows, tokens, 16-row tiles of the image rows
 };
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
@@ -111,6 +128,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr),
+               "l"(src));
+}
+
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -125,17 +148,6 @@ __device__ __forceinline__ uint32_t add_pairs(uint32_t a, uint32_t b) {
   return pack(x.x + y.x, x.y + y.y);
 }
 
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
@@ -146,22 +158,39 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// Starts the copy of a (rows, cols) bf16 matrix (row-major, dense) from
-// device memory into shared memory with row stride ld, all threads.
-__device__ __forceinline__ void load_matrix_async(bf16* dst, int ld,
-                                                  const bf16* src, int rows,
-                                                  int cols) {
-  const int per_row = cols / 8;
-  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i - r * per_row) * 8;
-    cp_async_16(dst + r * ld + c, src + r * cols + c);
+// 2^(m - top) as a merge factor; 0 for a state that saw no rows
+__device__ __forceinline__ float merge_factor(float m, float top) {
+  return m == -INFINITY ? 0.f : exp2f(m - top);
+}
+
+// The block's context with the cluster size a constant where the kernel is
+// compiled for clusters of one block, so that the cluster's branches fold
+// away there.
+template <bool kSolo>
+__device__ __forceinline__ Ctx fold(Ctx cx) {
+  if (kSolo) {
+    cx.rank = 0;
+    cx.csize = 1;
   }
+  return cx;
+}
+
+// v into `local` and into the same place in every other block of the
+// cluster (distributed shared memory)
+template <typename T>
+__device__ __forceinline__ void put_all(T* local, T v, int csize) {
+  if (csize == 1) {
+    *local = v;
+    return;
+  }
+  cg::cluster_group cl = cg::this_cluster();
+  for (int r = 0; r < csize; ++r) *cl.map_shared_rank(local, r) = v;
 }
 
 // A warp stages its 16 image rows (row0 .. row0 + 15 of the s rows of x,
-// width 256) into its slice: x + pe rounded to bf16 when pe is given, else x
-// as it is. Rows past s are zero.
-__device__ __forceinline__ void stage_rows(bf16* stage, const bf16* x,
+// width 256) into its slice: x + pe rounded to bf16 when pe is given, else
+// x as it is. Rows past s are zero.
+__device__ __forceinline__ void stage_rows(bf16* slice, const bf16* x,
                                            const bf16* pe, int row0, int s,
                                            int lane) {
   // lane l takes columns 8 l .. 8 l + 7 of every row; the loads of eight
@@ -190,16 +219,16 @@ __device__ __forceinline__ void stage_rows(bf16* stage, const bf16* x,
         v[j].z = add_pairs(v[j].z, p[j].z);
         v[j].w = add_pairs(v[j].w, p[j].w);
       }
-      *reinterpret_cast<uint4*>(stage + (half * 8 + j) * kLdD + c) = v[j];
+      *reinterpret_cast<uint4*>(slice + (half * 8 + j) * kLdD + c) = v[j];
     }
   }
   __syncwarp();
 }
 
-// acc (16 rows x 128 columns, 16 column tiles) = stage (16 x 256) . w^T + b
+// acc (16 rows x 128 columns, 16 column tiles) = slice (16 x 256) . w^T + b
 // with w (128, 256) in shared memory, row stride kLdD.
 __device__ __forceinline__ void project_rows(float (&acc)[kI / 8][4],
-                                             const bf16* stage,
+                                             const bf16* slice,
                                              const bf16* w_s, const bf16* b,
                                              int lane) {
   const int t = lane & 3;
@@ -210,7 +239,7 @@ __device__ __forceinline__ void project_rows(float (&acc)[kI / 8][4],
     acc[nt][0] = acc[nt][2] = bias.x;
     acc[nt][1] = acc[nt][3] = bias.y;
   }
-  const bf16* a_ptr = stage + (lane & 15) * kLdD + (lane >> 4) * 8;
+  const bf16* a_ptr = slice + (lane & 15) * kLdD + (lane >> 4) * 8;
   const bf16* b_ptr =
       w_s + ((lane >> 4) * 8 + (lane & 7)) * kLdD + ((lane >> 3) & 1) * 8;
   // the asm statements keep their order: all fragment loads of a k-step are
@@ -231,21 +260,32 @@ __device__ __forceinline__ void project_rows(float (&acc)[kI / 8][4],
   }
 }
 
-// out[i][o] = act(sum_k a_s[i][k] w[o][k] + b[o]) for the 8 token rows, all
-// warps; a_s bf16 in shared memory (row stride lda), w (n_out, n_in) bf16 in
-// device memory as nn.Linear keeps it. The k index of the products is
-// permuted so that a thread reads 16 contiguous bytes of a weight row: lane
-// t of a quad takes k = 32 kb + 8 t .. + 7 in two mma steps. The result goes
-// to out_f (fp32, stride ldf) or, rounded, to out_b (bf16, stride ldb).
-__device__ __forceinline__ void tok_dense(const bf16* a_s, int lda,
-                                          const bf16* w, const bf16* b,
-                                          int n_in, int n_out, float* out_f,
-                                          int ldf, bf16* out_b, int ldb,
-                                          bool relu) {
+// How a token dense stage stores its results: fp32 rows, bf16 rows, or bf16
+// transposed (out[col * kTok + row], rows past n zero: the token values as
+// the image-to-token product's B operand).
+enum OutMode { kOutF32, kOutBf16, kOutBf16T };
+
+// out[i][o] = act(sum_k a_s[i][k] w[o][k] + b[o]) for the 8 token rows; a_s
+// bf16 in shared memory (row stride lda, the same in every block), w (n_out,
+// n_in) bf16 in device memory as nn.Linear keeps it. The output is cut
+// across the cluster by columns: pair p of 16 columns goes to the
+// cluster's warp (p + skew) mod 8C, the warps numbered warp C + rank, and
+// every result is stored into the same place in each block. The k index of
+// the products is permuted so that a thread reads 16 contiguous bytes of a
+// weight row: lane t of a quad takes k = 32 kb + 8 t .. + 7 in two mma
+// steps.
+__device__ __forceinline__ void tok_dense(const Ctx& cx, const bf16* a_s,
+                                          int lda, const bf16* w,
+                                          const bf16* b, int n_in, int n_out,
+                                          void* out, int ld, OutMode mode,
+                                          bool relu, int skew) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int warps = kWarps * cx.csize;
+  const int gw = warp * cx.csize + cx.rank;
   const uint4* a4 = reinterpret_cast<const uint4*>(a_s + g * lda) + t;
-  for (int pair = warp; pair < n_out / 16; pair += kWarps) {
+  for (int pair = ((gw - skew) % warps + warps) % warps; pair < n_out / 16;
+       pair += warps) {
     const int n0 = pair * 16;
     float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
     const uint4* w0 =
@@ -274,10 +314,21 @@ __device__ __forceinline__ void tok_dense(const bf16* a_s, int lda,
         v0 = fmaxf(v0, 0.f);
         v1 = fmaxf(v1, 0.f);
       }
-      if (out_b != nullptr)
-        *reinterpret_cast<uint32_t*>(out_b + g * ldb + col) = pack(v0, v1);
-      else
-        *reinterpret_cast<float2*>(out_f + g * ldf + col) = make_float2(v0, v1);
+      if (mode == kOutF32) {
+        put_all(reinterpret_cast<float2*>(static_cast<float*>(out) + g * ld +
+                                          col),
+                make_float2(v0, v1), cx.csize);
+      } else if (mode == kOutBf16) {
+        put_all(reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + g * ld +
+                                            col),
+                pack(v0, v1), cx.csize);
+      } else {
+        bf16* o = static_cast<bf16*>(out);
+        put_all(o + col * kTok + g, __float2bfloat16(g < cx.n ? v0 : 0.f),
+                cx.csize);
+        put_all(o + (col + 1) * kTok + g,
+                __float2bfloat16(g < cx.n ? v1 : 0.f), cx.csize);
+      }
     }
   }
 }
@@ -369,43 +420,185 @@ __device__ __forceinline__ void tok_attention(bf16* out, int ldo,
 
 struct Smem {
   bf16* w;          // weight region / token temporaries
-  bf16* stage;      // kWarps slices of (16, kLdD)
+  bf16* slice;      // kWarps slices of (16, kLdD): image rows
   float* queries;   // (8, 256) token residual stream
   bf16* ta;         // (8, kLdTok) token operand
   bf16* tb;         // (8, kLdTok) second token operand
   bf16* qt;         // (8, kLdI) projected tokens of a cross-attention
   bf16* vt;         // (128, 8) projected token values, transposed
-  __device__ float* tmp(int i) const { return reinterpret_cast<float*>(w) + i * kTmpF; }
+  uint64_t* bar;    // the weight copies' barrier
+  __device__ float* tmp(int i) const {
+    return reinterpret_cast<float*>(w) + i * kTmpF;
+  }
   __device__ bf16* hidden() const {
     return reinterpret_cast<bf16*>(reinterpret_cast<char*>(w) + kHiddenOff);
   }
+  __device__ float* red(int warp) const {   // in the warp's slice
+    return reinterpret_cast<float*>(slice + warp * kRows * kLdD);
+  }
+  __device__ float* block_state() const {
+    return reinterpret_cast<float*>(reinterpret_cast<char*>(w) + kBlockOff);
+  }
 };
 
+// Starts bringing the two weight matrices of a pass into the weight
+// region, w0 (rows0, cols0) at row stride ld0, then w1 (rows1, cols1) at
+// ld1, each row read once from device memory for the whole cluster: block
+// `rank` copies rows rank, rank + C, ... of the two together and
+// multicasts them to every block, and each block's barrier awaits all the
+// bytes (wait_weights). A cluster of one block, which shares nothing, has
+// its threads copy 16 bytes each with cp.async. Every block of the cluster
+// must be done with its weight region.
+__device__ __forceinline__ void load_weights(const Ctx& cx, const Smem& sm,
+                                             const bf16* w0, int rows0,
+                                             int cols0, int ld0,
+                                             const bf16* w1, int rows1,
+                                             int cols1, int ld1) {
+  if (cx.csize == 1) {
+    for (int m = 0; m < 2; ++m) {
+      const int rows = m ? rows1 : rows0, cols = m ? cols1 : cols0;
+      const int ld = m ? ld1 : ld0, per_row = cols / 8;
+      bf16* dst = m ? sm.w + rows0 * ld0 : sm.w;
+      const bf16* src = m ? w1 : w0;
+      for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+        const int r = i / per_row, c = (i - r * per_row) * 8;
+        cp_async_16(dst + r * ld + c, src + (long long)r * cols + c);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    return;
+  }
+  if (threadIdx.x == 0)
+    sm90::mbar_expect_tx(sm.bar, (rows0 * cols0 + rows1 * cols1) * 2);
+  const uint16_t mask = (uint16_t)((1u << cx.csize) - 1);
+  for (int i = cx.rank + cx.csize * threadIdx.x; i < rows0 + rows1;
+       i += cx.csize * kThreads) {
+    const bool first = i < rows0;
+    const int row = first ? i : i - rows0;
+    bf16* dst = first ? sm.w + row * ld0 : sm.w + rows0 * ld0 + row * ld1;
+    const bf16* src = first ? w0 + (long long)row * cols0
+                            : w1 + (long long)row * cols1;
+    const uint32_t bytes = (first ? cols0 : cols1) * 2;
+    sm90::bulk_load_multicast(dst, src, bytes, sm.bar, mask);
+  }
+}
+
+// Waits for the weights of the pass that load_weights started (`phase`
+// counts the passes).
+__device__ __forceinline__ void wait_weights(const Ctx& cx, const Smem& sm,
+                                             uint32_t& phase) {
+  if (cx.csize == 1) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+  } else {
+    sm90::mbar_wait(sm.bar, phase & 1);
+  }
+  ++phase;
+}
+
+// Everything this block's threads did to shared memory, their own or the
+// cluster's, is done and seen by every block of the cluster; the weight
+// region may then take the next copies (the async proxy after the generic
+// one). A cluster of one block needs only the block's barrier.
+__device__ __forceinline__ void cluster_sync(const Ctx& cx) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (cx.csize == 1)
+    __syncthreads();
+  else
+    cg::this_cluster().sync();
+}
+
+// The out projection's operand ta (8 token rows, zero past n) from `count`
+// partial softmax states, state(k) each laid out as the warps' (maxima,
+// sums, numerators): every numerator and sum scaled to the states' common
+// maximum, the numerators' total over the sums' total.
+template <typename State>
+__device__ __forceinline__ void merge_states(bf16* ta, State state, int count,
+                                             int n) {
+  for (int idx = threadIdx.x; idx < kTok * kI; idx += kThreads) {
+    const int i = idx / kI, c = idx - i * kI, h = c / kDh;
+    float top = -INFINITY;
+    for (int k = 0; k < count; ++k)
+      top = fmaxf(top, state(k)[h * kTok + i]);
+    float den = 0.f, num = 0.f;
+    for (int k = 0; k < count; ++k) {
+      const float* x = state(k);
+      const float f = merge_factor(x[h * kTok + i], top);
+      den = fmaf(x[kHeads * kTok + h * kTok + i], f, den);
+      num = fmaf(x[2 * kHeads * kTok + idx], f, num);
+    }
+    ta[i * kLdTok + c] = __float2bfloat16(i < n ? num / den : 0.f);
+  }
+}
+
+// A cluster's token-to-image states merged: the warps' states into the
+// block's (maxima, sums and numerators to the block's maxima), then the C
+// block states, read through distributed shared memory, into ta in every
+// block alike.
+__device__ __forceinline__ void merge_cluster(const Ctx& cx, const Smem& sm,
+                                              int n) {
+  float* bs = sm.block_state();
+  for (int idx = threadIdx.x; idx < kTok * kI + kHeads * kTok;
+       idx += kThreads) {
+    const bool sums = idx >= kTok * kI;
+    const int j = sums ? idx - kTok * kI : idx;
+    const int i = sums ? j % kTok : j / kI;
+    const int h = sums ? j / kTok : (j - i * kI) / kDh;
+    float top = -INFINITY;
+    for (int w = 0; w < kWarps; ++w)
+      top = fmaxf(top, sm.red(w)[h * kTok + i]);
+    float acc = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float* r = sm.red(w);
+      acc = fmaf(sums ? r[kHeads * kTok + h * kTok + i]
+                      : r[2 * kHeads * kTok + j],
+                 merge_factor(r[h * kTok + i], top), acc);
+    }
+    if (sums) {
+      bs[h * kTok + i] = top;
+      bs[kHeads * kTok + h * kTok + i] = acc;
+    } else {
+      bs[2 * kHeads * kTok + j] = acc;
+    }
+  }
+  cluster_sync(cx);   // every block's state is complete
+  cg::cluster_group cl = cg::this_cluster();
+  merge_states(sm.ta,
+               [&](int r) -> const float* {
+                 return cl.map_shared_rank(bs, r);
+               },
+               cx.csize, n);
+}
+
 // Token-to-image attention and its norm: queries = LayerNorm(queries +
-// attention(queries + q0, keys + pe, keys)). The block walks the image rows
-// once: a warp takes 16 rows at a time, projects K and V with the weights
-// held in shared memory, scores them against the 8 projected tokens (one
-// k-step a head) and keeps an exact running maximum and sum (log2 domain);
-// the warps' partial states are merged at the end.
-__device__ void token_to_image(const Smem& sm, const Attn& a, const bf16* nw,
-                               const bf16* nb, const bf16* cur,
-                               const bf16* key_pe, const bf16* q0, int s,
-                               int n) {
+// attention(queries + q0, keys + pe, keys)). Each warp walks its tiles of 16
+// image rows staged from cur, projects K and V with the weights held in
+// shared memory, scores them against the 8 projected tokens (one k-step a
+// head) and keeps an exact running maximum and sum (log2 domain). The
+// partial states are merged in the block, then across the cluster through
+// distributed shared memory.
+template <bool kSolo>
+__device__ void token_to_image(const Ctx& ctx, const Smem& sm, const Attn& a,
+                               const bf16* nw, const bf16* nb, const bf16* cur,
+                               const bf16* key_pe, const bf16* q0,
+                               uint32_t& phase) {
+  const Ctx cx = fold<kSolo>(ctx);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  // tokens: qt = bf16((queries + q0) wq^T + bq)
+  const int s = cx.s, n = cx.n;
+  // tokens: qt = bf16((queries + q0) wq^T + bq), cut across the cluster
+  // while the weights arrive
   tok_stage(sm.ta, kLdTok, sm.queries, kD, q0, n, kD);
-  __syncthreads();   // also: the weight region's last readers are done
+  cluster_sync(cx);   // the cluster's weight regions are free
   bf16* wk_s = sm.w;
   bf16* wv_s = sm.w + kI * kLdD;
-  load_matrix_async(wk_s, kLdD, a.wk, kI, kD);
-  load_matrix_async(wv_s, kLdD, a.wv, kI, kD);
-  tok_dense(sm.ta, kLdTok, a.wq, a.bq, kD, kI, nullptr, 0, sm.qt, kLdI,
-            false);
-  cp_async_wait();
-  __syncthreads();
+  load_weights(cx, sm, a.wk, kI, kD, kLdD, a.wv, kI, kD, kLdD);
+  tok_dense(cx, sm.ta, kLdTok, a.wq, a.bq, kD, kI, sm.qt, kLdI, kOutBf16,
+            false, 0);
+  cluster_sync(cx);   // qt complete in every block
+  wait_weights(cx, sm, phase);
 
-  bf16* stage = sm.stage + warp * kRows * kLdD;
+  bf16* slice = sm.slice + warp * kRows * kLdD;
   const float qscale = rsqrtf((float)kDh) * kLog2e;
   float o[kI / 8][2];   // rows g (the tokens) of the output's column tiles
   float m[kHeads], l[kHeads];
@@ -420,12 +613,15 @@ __device__ void token_to_image(const Smem& sm, const Attn& a, const bf16* nw,
       reinterpret_cast<const uint32_t*>(sm.qt + g * kLdI) + t;
   const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8, vcol = (lane >> 4) * 8;
 
-  for (int row0 = warp * kRows; row0 < s; row0 += kWarps * kRows) {
+  for (int tile = cx.rank + cx.csize * warp; tile < cx.tiles;
+       tile += kWarps * cx.csize) {
+    const int row0 = tile * kRows;
     uint32_t kf[kHeads][2][2];   // K as B fragments: head, row half, k half
     {
+      // K from keys + pe, V from the keys alone
       float acc[kI / 8][4];
-      stage_rows(stage, cur, key_pe, row0, s, lane);
-      project_rows(acc, stage, wk_s, a.bk, lane);
+      stage_rows(slice, cur, key_pe, row0, s, lane);
+      project_rows(acc, slice, wk_s, a.bk, lane);
 #pragma unroll
       for (int h = 0; h < kHeads; ++h) {
         kf[h][0][0] = pack(acc[2 * h][0], acc[2 * h][1]);
@@ -434,11 +630,11 @@ __device__ void token_to_image(const Smem& sm, const Attn& a, const bf16* nw,
         kf[h][1][1] = pack(acc[2 * h + 1][2], acc[2 * h + 1][3]);
       }
       __syncwarp();
-      stage_rows(stage, cur, nullptr, row0, s, lane);
-      project_rows(acc, stage, wv_s, a.bv, lane);
-      __syncwarp();
+      stage_rows(slice, cur, nullptr, row0, s, lane);
+      project_rows(acc, slice, wv_s, a.bv, lane);
       // V, rounded, back into the slice as (16, kLdI) for ldmatrix.trans
-      uint32_t* v32 = reinterpret_cast<uint32_t*>(stage);
+      __syncwarp();
+      uint32_t* v32 = reinterpret_cast<uint32_t*>(slice);
 #pragma unroll
       for (int nt = 0; nt < kI / 8; ++nt) {
         v32[g * (kLdI / 2) + nt * 4 + t] = pack(acc[nt][0], acc[nt][1]);
@@ -479,22 +675,22 @@ __device__ void token_to_image(const Smem& sm, const Attn& a, const bf16* nw,
       l[h] = l[h] * alpha + part;
       const uint32_t pa[4] = {pack(sc[0][0], sc[0][1]), 0u,
                               pack(sc[1][0], sc[1][1]), 0u};
-      uint32_t vb[4];
-      ldmatrix_x4_trans(vb, stage + vrow * kLdI + h * kDh + vcol);
+      uint32_t v4[4];
+      ldmatrix_x4_trans(v4, slice + vrow * kLdI + h * kDh + vcol);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float c[4] = {o[2 * h + e][0] * alpha, o[2 * h + e][1] * alpha, 0.f,
                       0.f};
-        mma(c, pa, vb[2 * e], vb[2 * e + 1]);
+        mma(c, pa, v4[2 * e], v4[2 * e + 1]);
         o[2 * h + e][0] = c[0];
         o[2 * h + e][1] = c[1];
       }
     }
-    __syncwarp();   // the slice is restaged for the next rows
+    __syncwarp();   // the slice is staged again
   }
 
-  // merge the warps' states: each writes (m, l, o) into its own slice
-  float* red = reinterpret_cast<float*>(stage);
+  // each warp's state into its slice
+  float* red = sm.red(warp);
 #pragma unroll
   for (int h = 0; h < kHeads; ++h) {
     const float lsum = quad_sum(l[h]);
@@ -508,65 +704,53 @@ __device__ void token_to_image(const Smem& sm, const Attn& a, const bf16* nw,
     *reinterpret_cast<float2*>(red + 2 * kHeads * kTok + g * kI + nt * 8 +
                                2 * t) = make_float2(o[nt][0], o[nt][1]);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < kTok * kI; idx += kThreads) {
-    const int i = idx / kI, c = idx - i * kI, h = c / kDh;
-    float mx = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) {
-      const float* r = reinterpret_cast<const float*>(sm.stage + w * kRows * kLdD);
-      mx = fmaxf(mx, r[h * kTok + i]);
-    }
-    float den = 0.f, num = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float* r = reinterpret_cast<const float*>(sm.stage + w * kRows * kLdD);
-      const float f = exp2f(r[h * kTok + i] - mx);   // 0 for an idle warp
-      den = fmaf(r[kHeads * kTok + h * kTok + i], f, den);
-      num = fmaf(r[2 * kHeads * kTok + i * kI + c], f, num);
-    }
-    sm.ta[i * kLdTok + c] = __float2bfloat16(i < n ? num / den : 0.f);
+  if (kSolo) {
+    // one block: the warps' states merged into the out projection's operand
+    merge_states(sm.ta, [&](int w) -> const float* { return sm.red(w); },
+                 kWarps, n);
+  } else {
+    merge_cluster(cx, sm, n);
   }
+  // out projection (128 -> 256), residual, norm; its results land outside
+  // the block states, and the barrier after it also ends every read of them
   __syncthreads();
-  // out projection (128 -> 256), residual, norm
-  tok_dense(sm.ta, kLdTok, a.wo, a.bo, kI, kD, sm.tmp(0), kD, nullptr, 0,
-            false);
-  __syncthreads();
-  tok_add_norm(sm.queries, sm.tmp(0), false, nw, nb, n);
+  tok_dense(cx, sm.ta, kLdTok, a.wo, a.bo, kI, kD, sm.tmp(3), kD, kOutF32,
+            false, 0);
+  cluster_sync(cx);
+  tok_add_norm(sm.queries, sm.tmp(3), false, nw, nb, n);
   __syncthreads();
 }
 
 // Image-to-token attention and its norm: keys_out = LayerNorm(keys +
 // attention(keys + pe, queries + q0, queries)), rows independent. A warp
-// takes 16 rows at a time: Q projection, scores against the 8 projected
-// tokens, softmax over them, P . V, the out projection (128 -> 256, its
-// 16 x 256 result in registers), residual, LayerNorm, store.
-__device__ void image_to_token(const Smem& sm, const Attn& a, const bf16* nw,
-                               const bf16* nb, const bf16* cur, bf16* kout,
-                               const bf16* key_pe, const bf16* q0, int s,
-                               int n) {
+// takes a tile of 16 rows at a time: Q projection, scores against the 8
+// projected tokens, softmax over them, P . V, the out projection (128 ->
+// 256, its 16 x 256 result in registers), residual, LayerNorm, and the new
+// rows into kout.
+template <bool kSolo>
+__device__ void image_to_token(const Ctx& ctx, const Smem& sm, const Attn& a,
+                               const bf16* nw, const bf16* nb, const bf16* cur,
+                               bf16* kout, const bf16* key_pe, const bf16* q0,
+                               uint32_t& phase) {
+  const Ctx cx = fold<kSolo>(ctx);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int s = cx.s, n = cx.n;
   // tokens: kt = (queries + q0) wk^T + bk, vt = queries wv^T + bv
   tok_stage(sm.ta, kLdTok, sm.queries, kD, q0, n, kD);
   tok_stage(sm.tb, kLdTok, sm.queries, kD, nullptr, n, kD);
-  __syncthreads();
+  cluster_sync(cx);   // the cluster's weight regions are free
   bf16* wq_s = sm.w;
   bf16* wo_s = sm.w + kI * kLdD;
-  // the token values go through the idle staging region (fp32) and from
-  // there, transposed, into vt
-  float* tv = reinterpret_cast<float*>(sm.stage);   // (8, 128) fp32
-  tok_dense(sm.ta, kLdTok, a.wk, a.bk, kD, kI, nullptr, 0, sm.qt, kLdI,
-            false);
-  tok_dense(sm.tb, kLdTok, a.wv, a.bv, kD, kI, tv, kI, nullptr, 0, false);
-  load_matrix_async(wq_s, kLdD, a.wq, kI, kD);
-  load_matrix_async(wo_s, kLdI, a.wo, kD, kI);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kI * kTok; idx += kThreads) {
-    const int c = idx / kTok, i = idx - c * kTok;
-    sm.vt[c * kTok + i] = __float2bfloat16(i < n ? tv[i * kI + c] : 0.f);
-  }
-  cp_async_wait();
-  __syncthreads();
+  load_weights(cx, sm, a.wq, kI, kD, kLdD, a.wo, kD, kI, kLdI);
+  tok_dense(cx, sm.ta, kLdTok, a.wk, a.bk, kD, kI, sm.qt, kLdI, kOutBf16,
+            false, 0);
+  tok_dense(cx, sm.tb, kLdTok, a.wv, a.bv, kD, kI, sm.vt, 0, kOutBf16T,
+            false, kI / 16);
+  cluster_sync(cx);   // kt and vt complete in every block
+  wait_weights(cx, sm, phase);
 
-  bf16* stage = sm.stage + warp * kRows * kLdD;
+  bf16* slice = sm.slice + warp * kRows * kLdD;
   const float qscale = rsqrtf((float)kDh) * kLog2e;
   const uint32_t* kt32 =
       reinterpret_cast<const uint32_t*>(sm.qt + g * kLdI) + t;
@@ -574,12 +758,15 @@ __device__ void image_to_token(const Smem& sm, const Attn& a, const bf16* nw,
   const bf16* wo_ptr =
       wo_s + ((lane >> 4) * 8 + (lane & 7)) * kLdI + ((lane >> 3) & 1) * 8;
 
-  for (int row0 = warp * kRows; row0 < s; row0 += kWarps * kRows) {
+  for (int tile = cx.rank + cx.csize * warp; tile < cx.tiles;
+       tile += kWarps * cx.csize) {
+    const int row0 = tile * kRows;
     uint32_t oa[kHeads][4];   // attention output as the out projection's A
     {
+      // Q from keys + pe
       float acc[kI / 8][4];
-      stage_rows(stage, cur, key_pe, row0, s, lane);
-      project_rows(acc, stage, wq_s, a.bq, lane);
+      stage_rows(slice, cur, key_pe, row0, s, lane);
+      project_rows(acc, slice, wq_s, a.bq, lane);
 #pragma unroll
       for (int h = 0; h < kHeads; ++h) {
         const uint32_t qa[4] = {pack(acc[2 * h][0], acc[2 * h][1]),
@@ -660,7 +847,9 @@ __device__ void image_to_token(const Smem& sm, const Attn& a, const bf16* nw,
     }
     const float rstd0 = rsqrtf(quad_sum(var0) * (1.f / kD) + kEps);
     const float rstd1 = rsqrtf(quad_sum(var1) * (1.f / kD) + kEps);
-    __syncwarp();   // every lane has read its residual rows: in-place is safe
+    // each lane writes back only the words it read: in place is safe; rows
+    // past s stay as they are
+    __syncwarp();
     uint32_t* d0 = reinterpret_cast<uint32_t*>(kout + (long long)r0 * kD);
     uint32_t* d1 = reinterpret_cast<uint32_t*>(kout + (long long)r1 * kD);
 #pragma unroll
@@ -679,32 +868,52 @@ __device__ void image_to_token(const Smem& sm, const Attn& a, const bf16* nw,
     }
     __syncwarp();
   }
-  __syncthreads();   // the new keys are visible to the whole block
+  __syncthreads();
+  cluster_sync(cx);   // the cluster is done with the weights and the new keys
 }
 
+// One instance a cluster of C blocks (grid G C, cluster dims C): block rank
+// r takes the image-row tiles r, r + C, ... (warp w those of w C + r),
+// walked in device memory. kSolo compiles it for clusters of one block.
+template <bool kSolo>
 __global__ void __launch_bounds__(kThreads, 1)
-    twoway_tc_kernel(const bf16* keys_in, const bf16* queries_in,
-                     const bf16* key_pe, const bf16* params, bf16* q_out,
-                     bf16* k_out, int s, int n, int mlp, int depth) {
+    twoway_cluster_kernel(const bf16* keys_in, const bf16* queries_in,
+                          const bf16* key_pe, const bf16* params, bf16* q_out,
+                          bf16* k_out, int s, int n, int mlp, int depth) {
   extern __shared__ uint4 smem_raw[];
   char* base = reinterpret_cast<char*>(smem_raw);
   Smem sm;
   sm.w = reinterpret_cast<bf16*>(base);
-  sm.stage = reinterpret_cast<bf16*>(base + kWBytes);
-  sm.queries = reinterpret_cast<float*>(base + kWBytes + kStageBytes);
-  sm.ta = reinterpret_cast<bf16*>(base + kWBytes + kStageBytes +
+  sm.slice = reinterpret_cast<bf16*>(base + kWBytes);
+  sm.queries = reinterpret_cast<float*>(base + kWBytes + kSliceBytes);
+  sm.ta = reinterpret_cast<bf16*>(base + kWBytes + kSliceBytes +
                                   kQueriesBytes);
   sm.tb = sm.ta + kTok * kLdTok;
   sm.qt = sm.tb + kTok * kLdTok;
   sm.vt = sm.qt + kTok * kLdI;
+  sm.bar = reinterpret_cast<uint64_t*>(sm.vt + kI * kTok);
 
-  const long long inst = blockIdx.x;
+  cg::cluster_group cl = cg::this_cluster();
+  Ctx cx;
+  cx.rank = (int)cl.block_rank();
+  cx.csize = (int)cl.num_blocks();
+  cx.s = s;
+  cx.n = n;
+  cx.tiles = (s + kRows - 1) / kRows;
+  cx = fold<kSolo>(cx);
+
+  const long long inst = blockIdx.x / cx.csize;
   const bf16* q0 = queries_in + inst * n * kD;
   const bf16* cur = keys_in + inst * s * kD;
   bf16* kout = k_out + inst * s * kD;
   for (int idx = threadIdx.x; idx < kTok * kD; idx += kThreads)
     sm.queries[idx] = idx < n * kD ? __bfloat162float(q0[idx]) : 0.f;
-  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(sm.bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync(cx);   // every block's barrier is ready for the multicasts
+  uint32_t phase = 0;
 
   Cursor cu{params};
   const int ld_hidden = mlp + 32;
@@ -724,46 +933,56 @@ __global__ void __launch_bounds__(kThreads, 1)
     tok_stage(sm.ta, kLdTok, sm.queries, kD, layer == 0 ? nullptr : q0, n, kD);
     tok_stage(sm.tb, kLdTok, sm.queries, kD, nullptr, n, kD);
     __syncthreads();
-    tok_dense(sm.ta, kLdTok, self.wq, self.bq, kD, kD, sm.tmp(0), kD, nullptr,
-              0, false);
-    tok_dense(sm.ta, kLdTok, self.wk, self.bk, kD, kD, sm.tmp(1), kD, nullptr,
-              0, false);
-    tok_dense(sm.tb, kLdTok, self.wv, self.bv, kD, kD, sm.tmp(2), kD, nullptr,
-              0, false);
-    __syncthreads();
+    tok_dense(cx, sm.ta, kLdTok, self.wq, self.bq, kD, kD, sm.tmp(0), kD,
+              kOutF32, false, 0);
+    tok_dense(cx, sm.ta, kLdTok, self.wk, self.bk, kD, kD, sm.tmp(1), kD,
+              kOutF32, false, kD / 16);
+    tok_dense(cx, sm.tb, kLdTok, self.wv, self.bv, kD, kD, sm.tmp(2), kD,
+              kOutF32, false, 2 * kD / 16);
+    cluster_sync(cx);
     tok_attention(sm.ta, kLdTok, sm.tmp(0), sm.tmp(1), sm.tmp(2), n);
     __syncthreads();
-    tok_dense(sm.ta, kLdTok, self.wo, self.bo, kD, kD, sm.tmp(0), kD, nullptr,
-              0, false);
-    __syncthreads();
-    tok_add_norm(sm.queries, sm.tmp(0), layer == 0, n1w, n1b, n);
+    tok_dense(cx, sm.ta, kLdTok, self.wo, self.bo, kD, kD, sm.tmp(3), kD,
+              kOutF32, false, 0);
+    cluster_sync(cx);
+    tok_add_norm(sm.queries, sm.tmp(3), layer == 0, n1w, n1b, n);
     __syncthreads();
 
-    token_to_image(sm, t2i, n2w, n2b, cur, key_pe, q0, s, n);
+    token_to_image<kSolo>(cx, sm, t2i, n2w, n2b, cur, key_pe, q0,
+                              phase);
 
     // MLP
     tok_stage(sm.ta, kLdTok, sm.queries, kD, nullptr, n, kD);
     __syncthreads();
-    tok_dense(sm.ta, kLdTok, w1, b1, kD, mlp, nullptr, 0, sm.hidden(),
-              ld_hidden, true);
-    __syncthreads();
-    tok_dense(sm.hidden(), ld_hidden, w2, b2, mlp, kD, sm.tmp(0), kD, nullptr,
-              0, false);
-    __syncthreads();
+    tok_dense(cx, sm.ta, kLdTok, w1, b1, kD, mlp, sm.hidden(), ld_hidden,
+              kOutBf16, true, 0);
+    cluster_sync(cx);
+    tok_dense(cx, sm.hidden(), ld_hidden, w2, b2, mlp, kD, sm.tmp(0), kD,
+              kOutF32, false, 0);
+    cluster_sync(cx);
     tok_add_norm(sm.queries, sm.tmp(0), false, n3w, n3b, n);
     __syncthreads();
 
-    image_to_token(sm, i2t, n4w, n4b, cur, kout, key_pe, q0, s, n);
+    image_to_token<kSolo>(cx, sm, i2t, n4w, n4b, cur, kout, key_pe, q0,
+                              phase);
     cur = kout;
   }
   const Attn fin = cu.attn(kI);
   const bf16 *nfw = cu.take(kD), *nfb = cu.take(kD);
-  token_to_image(sm, fin, nfw, nfb, cur, key_pe, q0, s, n);
-  for (int idx = threadIdx.x; idx < n * kD; idx += kThreads)
-    q_out[inst * n * kD + idx] = __float2bfloat16(sm.queries[idx]);
-  if (depth == 0)
-    for (int idx = threadIdx.x; idx < s * kD; idx += kThreads)
-      kout[idx] = cur[idx];
+  token_to_image<kSolo>(cx, sm, fin, nfw, nfb, cur, key_pe, q0, phase);
+  if (cx.rank == 0)
+    for (int idx = threadIdx.x; idx < n * kD; idx += kThreads)
+      q_out[inst * n * kD + idx] = __float2bfloat16(sm.queries[idx]);
+  // with no block the keys are copied as they came
+  if (depth == 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(cur);
+    uint4* dst = reinterpret_cast<uint4*>(kout);
+    const long long words = (long long)s * kD / 8;
+    for (long long i = cx.rank * kThreads + threadIdx.x; i < words;
+         i += cx.csize * kThreads)
+      dst[i] = src[i];
+  }
+  cluster_sync(cx);   // no block leaves while another may read its memory
 }
 
 }  // namespace tc

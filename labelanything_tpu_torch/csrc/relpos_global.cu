@@ -12,17 +12,20 @@
 // (Cauchy-Schwarz) softmax shift and ones-column denominator were devices
 // of the TPU's matrix unit and are not carried over.
 //
-// * bf16 (the serving path): relpos_global_tc_kernel, four warps of 16
-//   query rows each on the tensor cores (mma.sync m16n8k16, see
-//   relpos_mma.cuh). The work is 4 N^2 dh flops per head against 6 N dh
-//   bytes of q, K and V, 2 N / 3 flops per byte (about 2700 at N = 4096):
+// * bf16: relpos_global_tc_kernel, four warps of 16 query rows each on the
+//   tensor cores (mma.sync m16n8k16, see relpos_mma.cuh), for key grids
+//   off the Hopper route: at 1024 px (rows 64 wide, kh even) the wrapper
+//   launches la_relpos_global_wgmma (relpos_packed_sm90.cu) instead, by
+//   the rule ops/flash_attention.py global_kernel. The work is 4 N^2 dh
+//   flops per head against 6 N dh bytes of q, K and V, 2 N / 3 flops per
+//   byte (about 2700 at N = 4096):
 //   bound by operations, not by device memory. What holds it below the
 //   tensor-core rate: mma.sync with four warps a block, and every warp
 //   waits at a barrier for each K/V tile (copied with cp.async, all of a
 //   thread's 16-byte copies in flight at once), which each of the N/64
 //   query tiles re-reads from L2. Copying the next tile during this one's
 //   arithmetic (two stages) was tried and was no faster: it costs a third
-//   of the resident blocks. Next steps: larger query tiles, then wgmma.
+//   of the resident blocks. The wgmma kernel took both next steps.
 // * fp32: relpos_global_kernel on the CUDA cores. Each key tile sits in
 //   shared memory (K transposed, V row-major); warp w owns query rows
 //   8w..8w+7, lane l owns keys l and l+32 of the tile for the scores and

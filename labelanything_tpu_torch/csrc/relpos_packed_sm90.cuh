@@ -1,12 +1,15 @@
-// The packed rel-pos attention's global kernel on Hopper: TMA-fed wgmma for
-// key grids whose rows are 64 wide (SAM ViT-H's global blocks at 1024 px,
-// 64 x 64 tokens), a template on the head width (instantiated at 80 in
-// relpos_packed_sm90.cu).
+// The rel-pos attention's global kernel on Hopper: TMA-fed wgmma for key
+// grids whose rows are 64 wide (SAM's global blocks at 1024 px, 64 x 64
+// tokens), a template on the head width, instantiated in
+// relpos_packed_sm90.cu at 80 (ViT-H, the packed layout) and at 64 (ViT-B
+// and ViT-L, the token-major qkv of the lanes kernels, with every row's
+// log-sum-exp written for the backward where a gradient is wanted).
 //
-// Replaces, on that route, the mma.sync kernel of relpos_packed.cuh
-// (packed_global_tc_kernel) for the TPU kernel of
-// labelanything_tpu/ops/flash_attention.py: flash_attention_relpos_packed
-// -> _packed_fwd_impl. Per (image, head):
+// Replaces, on that route, the mma.sync kernels of relpos_packed.cuh
+// (packed_global_tc_kernel) and relpos_global.cu (relpos_global_tc_kernel)
+// for the TPU kernels of labelanything_tpu/ops/flash_attention.py:
+// flash_attention_relpos_packed -> _packed_fwd_impl and
+// flash_attention_relpos_lanes -> _lanes_fwd_impl. Per (image, head):
 //   out[q] = sum_j softmax_j(q.k_j scale + rel_h[q, ky(j)] + rel_w[q, kx(j)]) v_j
 // with r = [rel_h (kh) | rel_w (64)] x log2(e) and an exact running max in
 // the log2 domain.
@@ -14,8 +17,9 @@
 // What bounds it: 4 N^2 dh tensor-core flops a head against N^2
 // exponentials and 6 N dh bytes; at N = 4096, dh = 80 the tensor cores
 // (about 320 flops a score against 16 exponentials a clock an SM) set the
-// bound, with the exponentials close behind. The design (PERF.md holds the
-// figures of the choices it was probed against):
+// bound, with the exponentials close behind; at dh = 64 (256 flops a
+// score) the two tie. The design (PERF.md holds the figures of the choices
+// it was probed against):
 //
 // * K6's shape (flash_wgmma.cu): one block of two consumer warpgroups of 64
 //   query rows (128 a block); thread 0 keeps TMA loads of the K and V tiles
@@ -46,6 +50,10 @@
 //   128-byte swizzle and one of the rest (16 columns at the 32-byte
 //   swizzle), so that P V is an n64 and an n16 product a k-step (five
 //   16-column boxes and one n80 product were slower).
+//
+// * Where lse is not null, every row's log-sum-exp m + log2(l) in the log2
+//   domain, (B, heads, N) fp32: what the backward (relpos_global_bwd.cu)
+//   reads instead of rebuilding the softmax denominator.
 //
 // The grid takes full tiles only: kw = 64 and kh even up to 64, so N is a
 // multiple of the block's 128 rows and of a tile, and no key or row is
@@ -204,7 +212,7 @@ __device__ __forceinline__ void pack_p(const float (&s)[N],
 // One (128-row block, head, image): q, k, v of head h are slots h,
 // heads + h, 2 heads + h of the qkv map; tq0 / tkv0 are the maps of the
 // 64-column boxes with 128 / kTileN-row boxes, tq1 / tkv1 of the 16-column
-// rest (unused where DH is 64).
+// rest (unused where DH is 64); lse is null or (B, heads, N) fp32.
 template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
     packed_global_wgmma_kernel(const __grid_constant__ CUtensorMap tq0,
@@ -212,8 +220,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                                const __grid_constant__ CUtensorMap tkv0,
                                const __grid_constant__ CUtensorMap tkv1,
                                const __nv_bfloat16* __restrict__ r,
-                               __nv_bfloat16* __restrict__ out, int heads,
-                               int kh, float c, Strides sr, Strides so) {
+                               __nv_bfloat16* __restrict__ out,
+                               float* __restrict__ lse, int heads, int kh,
+                               int n, float c, Strides sr, Strides so) {
   using B = Boxes<DH>;
   extern __shared__ unsigned char smem_raw[];
   Smem<DH>& sm = aligned_smem<Smem<DH>>(smem_raw);
@@ -418,6 +427,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     li += __shfl_xor_sync(0xffffffffu, li, 1);
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     const float inv = 1.f / li;
+    if (lse != nullptr && t == 0)
+      lse[((long long)b * heads + h) * n + q0 + row + 8 * i] =
+          m[i] + log2f(li);
     uint32_t* dst = reinterpret_cast<uint32_t*>(o_g + 8 * i * so.t);
 #pragma unroll
     for (int nb = 0; nb < DH / 8; ++nb)
@@ -427,13 +439,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // bf16 qkv (b, 3 heads, n, DH) and r (b, heads, n, kh + 64), strides s[0]
-// (qkv), s[1] (r), s[2] (out) as packed::launch takes them; the qkv view
-// must satisfy the TMA (16-byte aligned base and strides), else the maps
-// fail to encode and the launch returns cudaErrorInvalidValue.
+// (qkv), s[1] (r), s[2] (out) as packed::launch takes them; lse null or
+// (b, heads, n) fp32. The qkv view must satisfy the TMA (16-byte aligned
+// base and strides), else the maps fail to encode and the launch returns
+// cudaErrorInvalidValue.
 template <int DH>
 cudaError_t launch_global_wgmma(const void* qkv, const void* r, void* out,
-                                int b, int n, int heads, int kh, int kw,
-                                float qscale, const Strides* s,
+                                float* lse, int b, int n, int heads, int kh,
+                                int kw, float qscale, const Strides* s,
                                 cudaStream_t stream) {
   using B = Boxes<DH>;
   if (!grid_ok(kh, kw) || n != kh * kw) return cudaErrorInvalidValue;
@@ -462,7 +475,8 @@ cudaError_t launch_global_wgmma(const void* qkv, const void* r, void* out,
   const dim3 grid(n / kBlockM, heads, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       tq0, tq1, tkv0, tkv1, static_cast<const __nv_bfloat16*>(r),
-      static_cast<__nv_bfloat16*>(out), heads, kh, qscale, s[1], s[2]);
+      static_cast<__nv_bfloat16*>(out), lse, heads, kh, n, qscale, s[1],
+      s[2]);
   return cudaGetLastError();
 }
 

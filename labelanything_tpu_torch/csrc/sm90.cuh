@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the hand-written wgmma / TMA
 // kernels (flash_wgmma.cu, relpos_global_bwd.cu, relpos_packed_sm90.cuh):
 // mbarriers whose waits trap instead of hanging, 4-D TMA tile loads and 1-D
-// bulk copies into shared memory, wgmma issue / commit / wait and register
-// fences, the shared-memory matrix descriptor of 128-byte-swizzled (or, at
-// 32-byte rows, 64-byte-swizzled) operand tiles and of tiles at any swizzle,
-// the wgmma shapes the kernels use, and TMA tensor maps encoded over strided
-// operands through cudaGetDriverEntryPoint (nothing links against
-// libcuda).
+// bulk copies into shared memory (also multicast across a cluster: the
+// fused TwoWayTransformer's weights), wgmma issue / commit / wait and
+// register fences, the shared-memory matrix descriptor of 128-byte-swizzled
+// (or, at 32-byte rows, 64-byte-swizzled) operand tiles and of tiles at any
+// swizzle, the wgmma shapes the kernels use, and TMA tensor maps encoded
+// over strided operands through cudaGetDriverEntryPoint (nothing links
+// against libcuda).
 #pragma once
 
 #include <cuda.h>
@@ -80,6 +81,22 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The same copy read once from device memory and written into every block
+// of the cluster that `mask` names, at dst's offset in each; each
+// destination's barrier at bar's offset receives the bytes.
+__device__ __forceinline__ void bulk_load_multicast(void* dst,
+                                                    const void* src,
+                                                    uint32_t bytes,
+                                                    uint64_t* bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar)),
+      "h"(mask)
       : "memory");
 }
 

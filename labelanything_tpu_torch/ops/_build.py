@@ -78,7 +78,8 @@ def _source_hash() -> str:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     dims = [i, i, i, i, i, ctypes.c_float, i, p]  # b n heads kh kw scale bf16 stream
-    for name in ("la_relpos_global", "la_relpos_window"):
+    for name in ("la_relpos_global", "la_relpos_global_wgmma",
+                 "la_relpos_window"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p] + dims            # qkv r out lse
         fn.restype = i
@@ -97,9 +98,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = packed
         fn.restype = i
     # keys queries key_pe params q_out k_out scratch; g s n d heads mlp depth
-    # downsample bf16 stream
-    lib.la_fused_twoway.argtypes = [p] * 7 + [i] * 9 + [p]
+    # downsample bf16 cluster stream
+    lib.la_fused_twoway.argtypes = [p] * 7 + [i] * 10 + [p]
     lib.la_fused_twoway.restype = i
+    lib.la_fused_twoway_max_clusters.argtypes = [i]
+    lib.la_fused_twoway_max_clusters.restype = i
     # q k v out; batch heads nq nk dh scale bf16 strides[12] stream
     lib.la_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i,
                                        ctypes.c_float, i,

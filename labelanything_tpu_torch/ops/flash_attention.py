@@ -6,8 +6,11 @@ in CUDA C++ for Hopper replace the TPU's Pallas kernels. For heads 64 wide
 (ViT-B, ViT-L), on the token-major qkv projection:
 
 * :func:`flash_attention_relpos_lanes` - global blocks (N = 64 x 64 at
-  1024 px): forward ``csrc/relpos_global.cu`` (one block per (image, head,
-  64-row query tile), online softmax), backward
+  1024 px): forward in bf16 on key grids with rows 64 wide the TMA-fed
+  wgmma kernel of ``csrc/relpos_packed_sm90.cu`` (K5 global's template at
+  head width 64, reading the token-major qkv as strided views), elsewhere
+  ``csrc/relpos_global.cu`` (one block per (image, head, 64-row query
+  tile), online softmax), as :func:`global_kernel` names them; backward
   ``csrc/relpos_global_bwd.cu``. With ``int8_scores=True``, where the JAX
   package's rule sends its ``LA_TPU_INT8_SCORES`` flag
   (:func:`int8_scores_ok`), the forward takes the q . k scores in int8
@@ -79,6 +82,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
@@ -185,6 +189,29 @@ def relpos_attention_plain(qkv: torch.Tensor, r: torch.Tensor, scale: float,
     out = _attend(split(qkv[..., :c]), split(qkv[..., c:2 * c]),
                   split(qkv[..., 2 * c:]), split(r), scale, grid_hw)
     return out.transpose(1, 2).reshape(b, n, c)
+
+
+def relpos_lse_plain(qkv: torch.Tensor, r: torch.Tensor, scale: float,
+                     grid_hw: Tuple[int, int], heads: int) -> torch.Tensor:
+    """Every row's log-sum-exp of :func:`relpos_attention_plain`'s scores,
+    in the log2 domain the global kernels write for the backward: (B,
+    heads, N) fp32, log2 sum_j 2^(q.k_j scale log2(e) + r_h + r_w), taken
+    in fp64 one image at a time."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    kh, _ = grid_hw
+    out = []
+    for i in range(b):
+        def split(x):
+            return x[i].reshape(n, heads, -1).transpose(0, 1).double()
+
+        q, k, rb = split(qkv[..., :c]), split(qkv[..., c:2 * c]), split(r)
+        s = torch.matmul(q, k.transpose(-1, -2)) * (scale * LOG2E)
+        s += (rb[..., :kh, None] + rb[..., None, kh:]).reshape(s.shape)
+        out.append(torch.logsumexp(s * math.log(2.0), dim=-1)
+                   / math.log(2.0))
+        del s
+    return torch.stack(out).float()
 
 
 def vpu_bias_ok(kh: int, kw: int, n: int, block_k: int) -> bool:
@@ -361,24 +388,44 @@ def packed_route(n: int, grid_hw: Tuple[int, int]) -> str:
     return "relpos_packed_global"
 
 
+def wgmma_grid_ok(grid_hw: Tuple[int, int]) -> bool:
+    """Whether the global wgmma kernel (``csrc/relpos_packed_sm90.cuh``,
+    ``grid_ok``) takes a (kh, kw) key grid: rows 64 wide and kh even from 2
+    to 64, so that its key tiles are two whole key-grid rows and its
+    128-row blocks are full (SAM at 1024 px: 64 x 64)."""
+    kh, kw = grid_hw
+    return kw == 64 and kh % 2 == 0 and 2 <= kh <= 64
+
+
 def packed_global_kernel(dtype: torch.dtype, dh: int,
                          grid_hw: Tuple[int, int]) -> str:
     """The CUDA kernel that the packed global route runs, by its name in a
     profiler trace: ``packed_global_wgmma_kernel`` (TMA and wgmma,
     ``la_relpos_packed_global_wgmma``) in bf16 at a head width of
-    :data:`WGMMA_PACKED_HEAD_DIMS` on a key grid whose rows are 64 wide with
-    kh even from 2 to 64 (ViT-H at 1024 px: 64 x 64), so that its key
-    tiles are whole key-grid rows (two a tile) and its 128-row blocks are
-    full;
-    ``packed_global_tc_kernel`` (mma.sync, ``la_relpos_packed_global``) in
-    bf16 otherwise; ``packed_kernel`` (CUDA cores) in fp32."""
-    kh, kw = grid_hw
+    :data:`WGMMA_PACKED_HEAD_DIMS` on a key grid :func:`wgmma_grid_ok`
+    admits (ViT-H at 1024 px: 64 x 64); ``packed_global_tc_kernel``
+    (mma.sync, ``la_relpos_packed_global``) in bf16 otherwise;
+    ``packed_kernel`` (CUDA cores) in fp32."""
     if dtype != torch.bfloat16:
         return "packed_kernel"
-    if (dh in WGMMA_PACKED_HEAD_DIMS and kw == 64 and kh % 2 == 0
-            and 2 <= kh <= 64):
+    if dh in WGMMA_PACKED_HEAD_DIMS and wgmma_grid_ok(grid_hw):
         return "packed_global_wgmma_kernel"
     return "packed_global_tc_kernel"
+
+
+def global_kernel(dtype: torch.dtype, grid_hw: Tuple[int, int]) -> str:
+    """The CUDA kernel that the global route of the lanes layout (heads 64
+    wide) runs, by its name in a profiler trace:
+    ``packed_global_wgmma_kernel`` (K5 global's TMA and wgmma template at
+    head width 64, ``la_relpos_global_wgmma``) in bf16 on a key grid
+    :func:`wgmma_grid_ok` admits (ViT-B and ViT-L at 1024 px: 64 x 64);
+    ``relpos_global_tc_kernel`` (mma.sync, ``la_relpos_global``) on any
+    other bf16 grid; ``relpos_global_kernel`` (CUDA cores) in fp32."""
+    if dtype != torch.bfloat16:
+        return "relpos_global_kernel"
+    if wgmma_grid_ok(grid_hw):
+        return "packed_global_wgmma_kernel"
+    return "relpos_global_tc_kernel"
 
 
 def window_bwd_kernels(dtype: torch.dtype, grid_hw: Tuple[int, int]
@@ -411,7 +458,9 @@ def _check_launch(kernel: str, **tensors: torch.Tensor) -> None:
 def _launch(kernel: str, qkv: torch.Tensor, r: torch.Tensor, scale: float,
             grid_hw: Tuple[int, int], heads: int, want_lse: bool
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Forward kernel ``la_<kernel>``: (out, lse or None)."""
+    """Forward kernel ``la_<kernel>``: (out, lse or None). The global one
+    goes where :func:`global_kernel` says (``la_relpos_global_wgmma`` for
+    the wgmma kernel) and counts under ``relpos_global`` either way."""
     _check_launch(kernel, qkv=qkv, r=r)
     if kernel == "relpos_window" and not window_grid_ok(grid_hw):
         raise ValueError(f"the windowed kernel takes windows up to 16 x 16, "
@@ -424,13 +473,17 @@ def _launch(kernel: str, qkv: torch.Tensor, r: torch.Tensor, scale: float,
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
            if want_lse else None)
+    entry = "la_" + kernel
+    if (kernel == "relpos_global" and global_kernel(qkv.dtype, grid_hw)
+            == "packed_global_wgmma_kernel"):
+        entry = "la_relpos_global_wgmma"
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, "la_" + kernel)(
+        err = getattr(lib, entry)(
             qkv.data_ptr(), r.data_ptr(), out.data_ptr(),
             lse.data_ptr() if want_lse else None, b, n, heads, kh, kw,
             ctypes.c_float(scale), int(qkv.dtype == torch.bfloat16), stream)
-    _build.check(lib, err, "la_" + kernel)
+    _build.check(lib, err, entry)
     LAUNCHES[kernel] += 1
     return out, lse
 

@@ -7,7 +7,9 @@ class tokens: ``depth`` blocks (token self-attention, token-to-image
 attention, MLP, image-to-token attention, four LayerNorms) and a final
 token-to-image attention with its norm. As separate modules that is about
 50 small launches a call; :func:`fused_twoway_transformer` runs it as one
-CUDA kernel (``csrc/fused_twoway.cu``, one thread block per instance).
+CUDA kernel (``csrc/fused_twoway.cu``). In bf16 one instance is a
+thread-block cluster of :func:`twoway_cluster` blocks, which cut its image
+rows and its token-side products between them; in fp32 one block.
 
 * :func:`twoway_plain` is the same function in plain tensor code, on any
   device and dtype: what the kernel is held against, what a CPU tensor
@@ -50,6 +52,12 @@ KERNEL_DOWNSAMPLE = 2
 KERNEL_MAX_TOKENS = 8
 KERNEL_MAX_MLP = 2048
 _MAX_GRID_X = 2 ** 31 - 1
+# the bf16 kernel's blocks: 8 warps, each taking 16-row tiles of an
+# instance's image rows; at most 8 blocks an instance (portable clusters)
+KERNEL_WARPS = 8
+KERNEL_TILE_ROWS = 16
+KERNEL_CLUSTERS = (1, 2, 4, 8)
+KERNEL_MAX_CLUSTER = KERNEL_CLUSTERS[-1]
 
 
 def twoway_param_count(depth: int) -> int:
@@ -203,6 +211,46 @@ def fused_twoway_ok(device: torch.device, dtype: torch.dtype, tokens: int,
         device, dtype, tokens, dim, heads, mlp_dim, downsample, act)
 
 
+def twoway_cluster(g: int, s: int, capacity: Dict[int, int]) -> int:
+    """Blocks a cluster of the bf16 kernel gives each of ``g`` instances of
+    ``s`` image rows, where ``capacity`` maps each cluster size of
+    :data:`KERNEL_CLUSTERS` to the clusters the card holds at once
+    (:func:`cluster_capacity`): from 1, doubled up to 8 while all ``g``
+    doubled clusters still fit at once and the cluster's 8 C warps still
+    have fewer than the instance's 16-row tiles (ceil(s / 16) > 8 C) to
+    share. The prompt encoder's 96 instances of 900 rows take 1."""
+    tiles = -(-s // KERNEL_TILE_ROWS)
+    c = 1
+    while (c < KERNEL_MAX_CLUSTER and g <= capacity[2 * c]
+           and KERNEL_WARPS * c < tiles):
+        c *= 2
+    return c
+
+
+# cluster capacities by CUDA device index
+_CAPACITY: Dict[int, Dict[int, int]] = {}
+
+
+def cluster_capacity(device: torch.device) -> Dict[int, int]:
+    """Clusters of each size of :data:`KERNEL_CLUSTERS` of the bf16 kernel
+    that the card holds at once, as CUDA's occupancy calculator counts
+    them (``la_fused_twoway_max_clusters``); asked once a device."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _CAPACITY:
+        from . import _build
+
+        lib = _build.load()
+        with torch.cuda.device(index):
+            counts = {c: lib.la_fused_twoway_max_clusters(c)
+                      for c in KERNEL_CLUSTERS}
+        for c, count in counts.items():
+            if count < 0:
+                _build.check(lib, -count, "la_fused_twoway_max_clusters")
+        _CAPACITY[index] = counts
+    return _CAPACITY[index]
+
+
 def pack_params(params: Sequence[torch.Tensor], dtype: torch.dtype
                 ) -> torch.Tensor:
     """The parameters as one flat buffer of ``dtype`` in tuple order, the
@@ -267,13 +315,15 @@ def fused_twoway_packed(keys: torch.Tensor, queries: torch.Tensor,
             f"the fused_twoway kernel is not compiled for {keys.dtype} "
             f"width {d}, {heads} heads, downsample {downsample}, MLP "
             f"{mlp_dim}, {n} tokens (see fused_twoway_compiled)")
-    if not 1 <= g <= _MAX_GRID_X or s < 1:
+    if not 1 <= g * KERNEL_MAX_CLUSTER <= _MAX_GRID_X or s < 1:
         raise ValueError(f"{g} instances of {s} image tokens")
     from . import _build
 
     lib = _build.load()
     q_out, k_out = torch.empty_like(queries), torch.empty_like(keys)
     is_bf16 = keys.dtype == torch.bfloat16
+    cluster = (twoway_cluster(g, s, cluster_capacity(keys.device))
+               if is_bf16 else 1)
     # the fp32 kernel keeps two image-side projections of every instance
     scratch = (None if is_bf16 else
                torch.empty((g, 2, s, d // downsample), dtype=torch.float32,
@@ -284,7 +334,7 @@ def fused_twoway_packed(keys: torch.Tensor, queries: torch.Tensor,
             keys.data_ptr(), queries.data_ptr(), key_pe.data_ptr(),
             flat.data_ptr(), q_out.data_ptr(), k_out.data_ptr(),
             None if is_bf16 else scratch.data_ptr(), g, s, n, d, heads,
-            mlp_dim, depth, downsample, int(is_bf16), stream)
+            mlp_dim, depth, downsample, int(is_bf16), cluster, stream)
     _build.check(lib, err, "la_fused_twoway")
     fa.LAUNCHES["fused_twoway"] += 1
     return q_out, k_out

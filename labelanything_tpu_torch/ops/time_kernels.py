@@ -1,16 +1,19 @@
 """Device time of the forward kernels at their main paths' shapes (ViT-B's
-lanes kernels, the windowed one also at 200 windows and at ViT-L's 16
-heads; ViT-H's packed kernels, the windowed one also at 200 windows and
-the global one also at the embedding batch of 8 images; the backward
-kernels at the training step's 6 images, with each kernel of a backward call by name; the
-fused TwoWayTransformer at the episode-decode path's two call sites: 96
-prompt-encoder instances and 16 mask-decoder instances of 900 image tokens
-against 6 tokens, bf16; the plain flash kernel at the affinity decoder's
-call: 6 x 8 heads of 4096 queries against 8192 keys, 32 wide, bf16 and
-fp32; the global kernel with int8 scores beside it at ViT-B's global block;
-the fused windowed block at one 1024-px image's windowed block of ViT-B,
-ViT-L and ViT-H, beside the unfused kernel path that it replaces), for
-comparing two checkouts on one card.
+lanes kernels, the global one also at the embedding batch of 8 images with
+ViT-B's 12 and ViT-L's 16 heads and at the training step's 6 images with
+its log-sum-exp written, with 12 and 16 heads, the windowed one also at
+200 windows and at ViT-L's 16 heads; ViT-H's packed kernels, the windowed
+one also at 200 windows and the global one also at the embedding batch of
+8 images; the backward kernels at the training step's 6 images, with each
+kernel of a backward call by name; the fused TwoWayTransformer at the
+episode-decode path's two call sites: 96 prompt-encoder instances and 16
+mask-decoder instances of 900 image tokens against 6 tokens, bf16; the
+plain flash kernel at the affinity decoder's call: 6 x 8 heads of 4096
+queries against 8192 keys, 32 wide, bf16 and fp32; the global kernel with
+int8 scores beside it at ViT-B's global block; the fused windowed block at
+one 1024-px image's windowed block of ViT-B, ViT-L and ViT-H, beside the
+unfused kernel path that it replaces), for comparing two checkouts on one
+card.
 
     python labelanything_tpu_torch/ops/time_kernels.py [--root DIR] [--label X]
 
@@ -35,11 +38,22 @@ import sys
 import numpy as np
 import torch
 
+# the backward kernels at the training step's shapes: K3 on 6 images and K4
+# on their 150 windows, 12 heads of 64
+BWD_SHAPES = {"relpos_global": (6, (64, 64), 12, 64),
+              "relpos_window": (150, (14, 14), 12, 64)}
+
 # kernel: (batch, key grid, heads, head width); ViT-B's lanes kernels (the
-# windowed one also at the embedding batch's 200 windows and at ViT-L's 16
-# heads), then ViT-H's packed kernels on the token-major view the encoder
-# hands them
+# global one also as the training step launches it, on its 6 images with
+# the log-sum-exp written for the backward, with ViT-B's and ViT-L's
+# heads; the windowed one also at the embedding batch's 200 windows and at
+# ViT-L's 16 heads), then ViT-H's packed kernels on the token-major view
+# the encoder hands them
 SHAPES = {"relpos_global": (1, (64, 64), 12, 64),
+          "relpos_global_b8": (8, (64, 64), 12, 64),
+          "relpos_global_b8_heads16": (8, (64, 64), 16, 64),
+          "relpos_global_lse": BWD_SHAPES["relpos_global"],
+          "relpos_global_b6_heads16_lse": (6, (64, 64), 16, 64),
           "relpos_window": (25, (14, 14), 12, 64),
           "relpos_window_b200": (200, (14, 14), 12, 64),
           "relpos_window_heads16": (25, (14, 14), 16, 64),
@@ -47,11 +61,6 @@ SHAPES = {"relpos_global": (1, (64, 64), 12, 64),
           "relpos_packed_global_b8": (8, (64, 64), 16, 80),
           "relpos_packed_window": (25, (14, 14), 16, 80),
           "relpos_packed_window_b200": (200, (14, 14), 16, 80)}
-
-# the backward kernels at the training step's shapes: K3 on 6 images and K4
-# on their 150 windows, 12 heads of 64
-BWD_SHAPES = {"relpos_global": (6, (64, 64), 12, 64),
-              "relpos_window": (150, (14, 14), 12, 64)}
 
 
 # fused TwoWayTransformer: instances, image tokens, tokens (width 256)
@@ -318,8 +327,17 @@ def main() -> None:
     sys.path.insert(0, opts.root)
     from labelanything_tpu_torch.ops import flash_attention as fa
 
-    windowed = fa.flash_attention_relpos_lanes_batched
-    fns = {"relpos_global": fa.flash_attention_relpos_lanes,
+    windowed, lanes = (fa.flash_attention_relpos_lanes_batched,
+                       fa.flash_attention_relpos_lanes)
+
+    def lanes_lse(qkv, r, scale, grid, heads):
+        return fa._launch("relpos_global", qkv, r, scale, grid, heads,
+                          want_lse=True)
+
+    fns = {"relpos_global": lanes, "relpos_global_b8": lanes,
+           "relpos_global_b8_heads16": lanes,
+           "relpos_global_lse": lanes_lse,
+           "relpos_global_b6_heads16_lse": lanes_lse,
            "relpos_window": windowed, "relpos_window_b200": windowed,
            "relpos_window_heads16": windowed}
     packed = getattr(fa, "flash_attention_relpos_packed", None)

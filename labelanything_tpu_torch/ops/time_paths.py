@@ -1,10 +1,11 @@
 """End-to-end times of the paths that run the attention kernels, for
 comparing two checkouts on one card: ``chip_smoke.py``'s ViT-B request
-(phase 4), bf16 training step (phase 6), ``lam_h`` request with a profiler
-pass over it (phase 8), embedding of 8 images with
-``build_vit_b``, ``build_vit_l`` and ``build_vit_h`` (phases 9 and 15) and
-affinity decode (phase 13), each as that checkout's ``chip_smoke.py``
-drives it, with its own kernels and launch checks.
+(phase 4) and ``lam_h`` request (phase 8), each with a profiler pass over
+it, bf16 training step with its profiler pass (phase 6), embedding of 8
+images with ``build_vit_b``, ``build_vit_l`` and ``build_vit_h`` (phases 9
+and 15), affinity decode (phase 13) and episode decode with its profiler
+pass (phase 11), each as that checkout's ``chip_smoke.py`` drives it, with
+its own kernels and launch checks.
 
     python labelanything_tpu_torch/ops/time_paths.py [--root DIR]
 
@@ -50,7 +51,7 @@ def main() -> None:
             return sys.__stdout__.write(text)
 
     with contextlib.redirect_stdout(Tee()):
-        cs.phase_serve(requests=opts.requests)
+        cs.phase_serve(requests=opts.requests, profile=True)
         cs.phase_train()
         cs.phase_serve(cs.CONFIG_H, cs.ENCODER_LAUNCHES_H,
                        requests=opts.requests, profile=True)
@@ -60,27 +61,37 @@ def main() -> None:
                 (cs.build_vit_h, "vit_h", cs.ENCODER_LAUNCHES_H)):
             cs.phase_embed(build, name, launches)
         cs.phase_affinity()
+        cs.phase_decode()
     text = log.getvalue()
 
-    def number(pattern: str) -> float:
-        found = re.search(pattern, text)
-        return float(found.group(1)) if found else float("nan")
+    def number(pattern: str, which: int = 0) -> float:
+        found = re.findall(pattern, text)
+        return float(found[which]) if len(found) > which else float("nan")
+
+    # the ViT-B request's profiler pass, then the lam_h request's
+    request_kernel = (r"profile: 2 requests, .*kernel time ([\d.]+) ms a "
+                      r"request")
 
     print(card)
     print(json.dumps(dict(
         label=opts.label, root=root, card=torch.cuda.get_device_name(0),
         request_ms=number(r"serve lam_b: .*?request latency median ([\d.]+)"),
+        request_kernel_ms=number(request_kernel, 0),
         train_step_ms=number(r"train: 6 images.*?median ([\d.]+) ms"),
+        train_kernel_ms=number(
+            r"profile: 2 steps, .*kernel time ([\d.]+) ms a step"),
         request_h_ms=number(
             r"serve lam_h: .*?request latency median ([\d.]+)"),
-        request_h_kernel_ms=number(
-            r"profile: 2 requests, .*kernel time ([\d.]+) ms a request"),
+        request_h_kernel_ms=number(request_kernel, 1),
         embed_vit_b=number(r"embed vit_b: .*= ([\d.]+) images/s"),
         embed_vit_l=number(r"embed vit_l: .*= ([\d.]+) images/s"),
         embed_vit_h=number(r"embed vit_h: .*= ([\d.]+) images/s"),
         affinity_ms=number(r"affinity decode: .*?median ([\d.]+) ms"),
         affinity_kernel_ms=number(
-            r"profile: 2 forwards, .*kernel time ([\d.]+) ms a forward"))))
+            r"profile: 2 forwards, .*kernel time ([\d.]+) ms a forward"),
+        decode_ms=number(r"decode with masks: .*?median ([\d.]+) ms"),
+        decode_kernel_ms=number(
+            r"profile: 4 steps, .*kernel time ([\d.]+) ms a step"))))
 
 
 if __name__ == "__main__":

@@ -153,6 +153,73 @@ def test_window_kernel_shapes_lse_and_gradient(cuda, b, grid_hw, heads,
             assert ok, (diff, floor)
 
 
+# K1 on the wgmma kernel (global_kernel): ViT-B's 12 and ViT-L's 16 heads
+# at 1024 px, at a request's image and the training step's 6
+GLOBAL_WGMMA_CASES = [(1, 12), (1, 16), (6, 12), (6, 16)]
+
+
+@pytest.mark.parametrize("want_lse", [False, True])
+@pytest.mark.parametrize("b,heads", GLOBAL_WGMMA_CASES)
+def test_global_wgmma_matches_plain(cuda, b, heads, want_lse):
+    """The wgmma K1 at 64 x 64 against the twin by the 4 x rule; the
+    log-sum-exp it writes against the twin's on the same bf16 inputs (fp64,
+    rtol = atol = 1e-4), or none where no gradient is wanted."""
+    args = (64 ** -0.5, (64, 64), heads)
+    assert fa.global_kernel(torch.bfloat16, (64, 64)) \
+        == "packed_global_wgmma_kernel"
+    qkv, r = _inputs(b, (64, 64), heads, torch.bfloat16, cuda, seed=3)
+    before = fa.LAUNCHES["relpos_global"]
+    out, lse = fa._launch("relpos_global", qkv, r, *args, want_lse=want_lse)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["relpos_global"] == before + 1
+    ok, diff, floor = _bf16_ok(
+        out, fa.relpos_attention_plain(qkv, r, *args),
+        fa.relpos_attention_plain(qkv.float(), r.float(), *args))
+    assert out.dtype == torch.bfloat16 and ok, (diff, floor)
+    if want_lse:
+        assert lse.shape == (b, heads, 4096) and lse.dtype == torch.float32
+        torch.testing.assert_close(lse, fa.relpos_lse_plain(qkv, r, *args),
+                                   rtol=1e-4, atol=1e-4)
+    else:
+        assert lse is None
+
+
+def test_global_wgmma_gradient_into_k3(cuda):
+    """The gradient through flash_attention_relpos_lanes at 64 x 64 (the
+    wgmma forward's log-sum-exp read by K3) against the plain backward by
+    the 4 x rule per output, and the same bits on a second run."""
+    args = (64 ** -0.5, (64, 64), 12)
+    qkv, r = _inputs(2, (64, 64), 12, torch.bfloat16, cuda, seed=6)
+    ct = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 4096, 768), np.float32)).to(cuda, torch.bfloat16)
+    qkv.requires_grad_()
+    r.requires_grad_()
+    out = fa.flash_attention_relpos_lanes(qkv, r, *args)
+    first = torch.autograd.grad(out, (qkv, r), ct, retain_graph=True)
+    second = torch.autograd.grad(out, (qkv, r), ct)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    with torch.no_grad():
+        plain = fa.relpos_attention_bwd_plain(qkv, r, out, ct, *args)
+        plain32 = fa.relpos_attention_bwd_plain(
+            qkv.float(), r.float(), out.float(), ct.float(), *args)
+    for got, ref, ref32 in zip(first, plain, plain32):
+        ok, diff, floor = _bf16_ok(got, ref, ref32)
+        assert got.dtype == torch.bfloat16 and ok, (diff, floor)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid_hw", [(64, 64), (2, 64), (16, 64), (7, 64),
+                                     (48, 48)])
+def test_global_runs_the_kernel_of_its_rule(cuda, grid_hw, dtype):
+    """The lanes global route launches the kernel that ``global_kernel``
+    names, and no other."""
+    qkv, r = _inputs(1, grid_hw, 2, dtype, cuda)
+    names = tk.kernel_names(lambda: fa.flash_attention_relpos_lanes(
+        qkv, r, 0.125, grid_hw, 2), calls=3)
+    want = fa.global_kernel(dtype, grid_hw)
+    assert len(names) == 1 and want in next(iter(names)), (want, names)
+
+
 def test_window_kernel_rejects_grids_past_16(cuda):
     """Windows past 16 x 16 raise on the card; the twin takes them on the
     CPU only."""
@@ -472,6 +539,41 @@ def test_fused_twoway_matches_plain(cuda, g, s, n, mlp, dtype):
             ok, diff, floor = _bf16_ok(out, plain, plain32)
             assert ok, (diff, floor)
     assert fa.LAUNCHES["fused_twoway"] == before + 1
+
+
+# the bf16 cluster kernel at instance counts around the card's 132 SMs
+# (clusters of 8, 4 and 1: both of its instantiations), on 900 rows (57
+# tiles) and a ragged 37, one token and eight; and 2000 rows, more tiles
+# than a cluster of 8 has warps
+TWOWAY_CLUSTER_CASES = [(g, s, n) for g in (1, 7, 16, 96, 133)
+                        for s in (900, 37) for n in (1, 8)] + [(4, 2000, 6)]
+
+
+@pytest.mark.parametrize("g,s,n", TWOWAY_CLUSTER_CASES)
+def test_fused_twoway_cluster_matches_plain(cuda, g, s, n):
+    """K7 in bf16, one instance a cluster of ``twoway_cluster`` blocks,
+    against ``twoway_plain`` on both outputs by the 4 x rounding-floor
+    rule."""
+    from labelanything_tpu_torch.ops import fused_twoway as ft
+
+    tr, keys, queries, pe = _twoway_case(g, s, n, torch.bfloat16, cuda)
+    params = ft.twoway_params(tr)
+    capacity = ft.cluster_capacity(cuda)
+    assert all(capacity[c] >= 1 for c in ft.KERNEL_CLUSTERS)
+    c = ft.twoway_cluster(g, s, capacity)
+    assert c == 1 or g <= capacity[c]
+    before = fa.LAUNCHES["fused_twoway"]
+    with torch.no_grad():
+        got = ft.fused_twoway_transformer(keys, queries, pe, params, 2, 8)
+        torch.cuda.synchronize()
+        ref = ft.twoway_plain(keys, queries, pe, params, 2, 8)
+        ref32 = ft.twoway_plain(keys.float(), queries.float(), pe.float(),
+                                params, 2, 8)
+    assert fa.LAUNCHES["fused_twoway"] == before + 1
+    for out, plain, plain32 in zip(got, ref, ref32):
+        assert out.dtype == torch.bfloat16 and out.shape == plain.shape
+        ok, diff, floor = _bf16_ok(out, plain, plain32)
+        assert ok, (c, diff, floor)
 
 
 def test_fused_twoway_gradient_and_plain_by_name(cuda):

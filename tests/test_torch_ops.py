@@ -271,6 +271,88 @@ def test_packed_global_kernel_rule(dtype, dh, grid_hw, expected):
 
 
 @pytest.mark.parametrize("dtype,grid_hw,expected", [
+    # ViT-B's and ViT-L's global blocks at 1024 px, and the smallest grid
+    (torch.bfloat16, (64, 64), "packed_global_wgmma_kernel"),
+    (torch.bfloat16, (2, 64), "packed_global_wgmma_kernel"),
+    (torch.bfloat16, (16, 64), "packed_global_wgmma_kernel"),
+    # rows 64 wide that the wgmma kernel refuses: kh odd or past 64
+    (torch.bfloat16, (7, 64), "relpos_global_tc_kernel"),
+    (torch.bfloat16, (66, 64), "relpos_global_tc_kernel"),
+    # other rows (768 px: 48 x 48, the general bias path), fp32
+    (torch.bfloat16, (48, 48), "relpos_global_tc_kernel"),
+    (torch.bfloat16, (64, 32), "relpos_global_tc_kernel"),
+    (torch.float32, (64, 64), "relpos_global_kernel"),
+    (torch.float32, (7, 9), "relpos_global_kernel"),
+])
+def test_global_kernel_rule(dtype, grid_hw, expected):
+    """The lanes global route's kernel by dtype and key grid: K5 global's
+    TMA and wgmma template at head width 64 on exactly the grids the packed
+    rule gives it at 80, the mma.sync kernel for other bf16 grids, the
+    CUDA-core kernel in fp32."""
+    assert tfa.global_kernel(dtype, grid_hw) == expected
+    if dtype == torch.bfloat16:
+        assert (expected == "packed_global_wgmma_kernel") == (
+            tfa.packed_global_kernel(dtype, 80, grid_hw)
+            == "packed_global_wgmma_kernel")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b,grid_hw,heads", [(2, (8, 8), 3), (1, (4, 64), 2),
+                                             (1, (64, 64), 1)])
+def test_lanes_operands_as_packed_views(b, grid_hw, heads, dtype):
+    """The layout the wgmma K1 reads: the token-major qkv (B, N, 3 heads 64)
+    and r (B, N, heads (kh + kw)) viewed without a copy as the packed (B, 3
+    heads, N, 64) and (B, heads, N, kh + kw), with the strides that
+    la_relpos_global_wgmma hands the kernel, give through the packed twin
+    what the lanes twin gives on the token-major tensors; the packed output
+    laid out token-major is the lanes output."""
+    kh, kw = grid_hw
+    n, c, rr = kh * kw, heads * 64, kh + kw
+    qkv_np, r_np = _relpos_inputs(b, grid_hw, heads, seed=7)
+    qkv = torch.from_numpy(qkv_np).to(dtype)
+    r = torch.from_numpy(0.5 * r_np).to(dtype)
+    pq = qkv.view(b, n, 3 * heads, 64).permute(0, 2, 1, 3)
+    pr = r.view(b, n, heads, rr).permute(0, 2, 1, 3)
+    assert pq.data_ptr() == qkv.data_ptr() and pr.data_ptr() == r.data_ptr()
+    assert pq.stride() == (3 * c * n, 64, 3 * c, 1)
+    assert pr.stride() == (rr * heads * n, rr, rr * heads, 1)
+    out = torch.empty(b, n, c, dtype=dtype)
+    out_view = out.view(b, n, heads, 64).permute(0, 2, 1, 3)
+    assert out_view.stride() == (c * n, 64, c, 1)
+    scale = 64 ** -0.5
+    out_view.copy_(tfa.relpos_packed_plain(pq, pr, scale, grid_hw, heads))
+    torch.testing.assert_close(
+        out, tfa.relpos_attention_plain(qkv, r, scale, grid_hw, heads),
+        rtol=1e-6 if dtype == torch.float32 else 1e-12, atol=0)
+
+
+def test_relpos_lse_plain_rebuilds_the_softmax():
+    """The twin's log-sum-exp, in the log2 domain the global kernels write
+    for the backward: 2^(scores - lse) are the twin's probabilities (rows
+    summing to one, the output as the twin's), in fp64."""
+    b, grid_hw, heads = 2, (6, 10), 3
+    kh, kw = grid_hw
+    n, c = kh * kw, heads * 64
+    qkv_np, r_np = _relpos_inputs(b, grid_hw, heads, seed=9)
+    qkv, r = torch.from_numpy(qkv_np).double(), torch.from_numpy(r_np).double()
+    scale = 64 ** -0.5
+    lse = tfa.relpos_lse_plain(qkv, r, scale, grid_hw, heads)
+    assert lse.shape == (b, heads, n) and lse.dtype == torch.float32
+    split = lambda x: x.reshape(b, n, heads, -1).transpose(1, 2)
+    q, k, v, rb = (split(x) for x in (qkv[..., :c], qkv[..., c:2 * c],
+                                      qkv[..., 2 * c:], r))
+    s = torch.matmul(q, k.transpose(-1, -2)) * (scale * tfa.LOG2E)
+    s += (rb[..., :kh, None] + rb[..., None, kh:]).reshape(s.shape)
+    p = torch.exp2(s - lse.double()[..., None])
+    torch.testing.assert_close(p.sum(-1), torch.ones_like(p[..., 0]),
+                               rtol=0, atol=1e-6)
+    out = torch.matmul(p, v).transpose(1, 2).reshape(b, n, c)
+    torch.testing.assert_close(
+        out, tfa.relpos_attention_plain(qkv, r, scale, grid_hw, heads),
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,grid_hw,expected", [
     (torch.bfloat16, (14, 14), "window"),    # SAM's windows, the step's
     (torch.bfloat16, (7, 7), "window"),      # key-grid rows of 8 slots
     (torch.bfloat16, (16, 16), "window"),    # the 256-token maximum

@@ -221,6 +221,35 @@ def test_fused_twoway_ok_rule(change, expected):
         expected or change == dict(dtype=torch.float32))
 
 
+# clusters of 1, 2, 4 and 8 blocks a card holds at once: 132 SMs in GPCs
+# that take two clusters of 8 each, and one GPC short of that
+ROOMY = {1: 132, 2: 66, 4: 33, 8: 16}
+TIGHT = {1: 132, 2: 66, 4: 32, 8: 15}
+
+
+@pytest.mark.parametrize("g,s,capacity,expected", [
+    (16, 900, ROOMY, 8),    # the mask decoder's call: 16 clusters of 8
+    (16, 900, TIGHT, 4),    # the 16th cluster of 8 would wait a wave
+    (96, 900, ROOMY, 1),    # the prompt encoder's: 96 blocks
+    (1, 900, ROOMY, 8),
+    (7, 900, TIGHT, 8),
+    (33, 900, ROOMY, 4),
+    (33, 900, TIGHT, 2),
+    (133, 900, ROOMY, 1),   # more instances than SMs
+    (16, 37, ROOMY, 1),     # 3 tiles: one block's 8 warps hold them
+    (1, 200, ROOMY, 2),     # 13 tiles: two blocks' 16 warps
+    (4, 2000, ROOMY, 8),    # 125 tiles: more than 64 warps, walked
+])
+def test_twoway_cluster_rule(g, s, capacity, expected):
+    """The bf16 kernel's blocks an instance: a power of two up to 8, as
+    large as lets all instances' clusters sit on the card at once, and no
+    larger than the instance's 16-row tiles need."""
+    c = ft.twoway_cluster(g, s, capacity)
+    assert c == expected and c in ft.KERNEL_CLUSTERS
+    assert c == 1 or g <= capacity[c]
+    assert c == 1 or 8 * (c // 2) < -(-s // 16)
+
+
 def test_fused_cuda_route_never_falls_back():
     """Off the CPU the function launches its kernel or raises: a tensor on
     another device type is refused, and so is a shape the kernel is not
