@@ -10,13 +10,27 @@ CUDA card unless the caller names another, such as ``"cpu"``) and serves it:
 
 Batches are dicts of numpy arrays or tensors in the JAX package's
 channels-last layout (``labelanything_tpu.data.synthetic.random_batch``);
-they are moved to the model's device. Loading released checkpoints
-(``from_pretrained``) is not ported yet; :meth:`LabelAnything.from_jax_params`
-takes the JAX package's parameters.
+they are moved to the model's device. Checkpoints:
+
+    la = LabelAnything.from_pretrained("path/to/checkpoint_dir")
+    la.save_pretrained("out_dir")
+
+A checkpoint directory holds ``config.json`` and the weights as a state
+dict of the reference layout: ``model.safetensors`` (read and written by
+``utils/safetensors.py``), ``pytorch_model.bin`` or ``model.pth``; the JAX
+package's ``save_torch_compatible`` writes one and reads the port's.
+Hugging Face ids resolve through a local ``LABELANYTHING_CACHE`` /
+``HF_HOME`` snapshot; nothing is downloaded. The JAX package's own
+``params/`` (orbax) directories are not read: re-save them there with
+``save_torch_compatible``. :meth:`LabelAnything.from_jax_params` takes the
+JAX package's parameters in memory.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import pathlib
 from typing import Any, Dict, Optional, Union
 
 import torch
@@ -25,9 +39,69 @@ from .models.build_lam import build_lam
 from .models.lam import Lam
 from .models.registry import model_registry
 from .typing import ResultDict
-from .utils.weights import init_weights, state_dict_from_jax
+from .utils.safetensors import load_file, save_file
+from .utils.weights import (init_weights, reference_state_dict,
+                            state_dict_from_jax)
 
 Batch = Dict[str, Any]
+
+CONFIG_NAME = "config.json"
+TORCH_WEIGHTS = ("model.safetensors", "pytorch_model.bin", "model.pth")
+JAX_PARAMS_DIR = "params"
+# keys a reference config may carry that name no builder argument
+_TORCH_ONLY_KEYS = ("checkpoint", "use_sam_checkpoint", "torch_dtype",
+                    "transformers_version", "architectures")
+
+
+class LabelAnythingConfig(dict):
+    """Plain-dict config (reference: build_lam.py:402-464)."""
+
+    @classmethod
+    def from_file(cls, path: str) -> "LabelAnythingConfig":
+        with open(path) as f:
+            return cls(json.load(f))
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(dict(self), f, indent=2)
+
+
+def _resolve_checkpoint_dir(name_or_path: str) -> pathlib.Path:
+    """A checkpoint directory: the path itself, or a Hugging Face id's local
+    snapshot under ``LABELANYTHING_CACHE``, ``HF_HOME`` or
+    ``~/.cache/huggingface`` (JAX ``api.py:52-81``; the hub download it
+    falls back to is not ported)."""
+    p = pathlib.Path(name_or_path)
+    if p.is_dir():
+        return p
+    for root in (os.environ.get("LABELANYTHING_CACHE"),
+                 os.environ.get("HF_HOME"),
+                 os.path.expanduser("~/.cache/huggingface")):
+        if not root:
+            continue
+        repo_dir = pathlib.Path(root) / "hub" / (
+            "models--" + name_or_path.replace("/", "--")) / "snapshots"
+        if repo_dir.exists():
+            snaps = sorted(repo_dir.iterdir())
+            if snaps:
+                return snaps[-1]
+        flat = pathlib.Path(root) / name_or_path.replace("/", "--")
+        if flat.is_dir():
+            return flat
+    raise FileNotFoundError(
+        f"Checkpoint {name_or_path!r} not found locally (no hub download "
+        f"here); put the snapshot under LABELANYTHING_CACHE.")
+
+
+def load_weights_file(path: str) -> Dict[str, torch.Tensor]:
+    """A state dict from ``.safetensors`` or a ``torch.save`` file (whose
+    ``state_dict`` entry is taken when it has one), on the CPU."""
+    if str(path).endswith(".safetensors"):
+        return load_file(str(path))
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in state:
+        state = state["state_dict"]
+    return dict(state)
 
 # config keys that name the architecture or the weights' origin, not a
 # builder argument
@@ -82,6 +156,48 @@ class LabelAnything:
         la = cls(config, device, seed=None)
         la.load_state_dict(state_dict_from_jax(params))
         return la
+
+    @classmethod
+    def from_pretrained(cls, name_or_path: str,
+                        device: Union[str, torch.device] = "cuda",
+                        **config_overrides) -> "LabelAnything":
+        """The model of a checkpoint directory (:func:`_resolve_checkpoint_dir`)
+        on ``device``, from its ``config.json`` (updated by
+        ``config_overrides``) and the first of :data:`TORCH_WEIGHTS` it
+        holds (JAX ``api.py:114-143``)."""
+        ckpt_dir = _resolve_checkpoint_dir(name_or_path)
+        config = LabelAnythingConfig.from_file(str(ckpt_dir / CONFIG_NAME))
+        config.update(config_overrides)
+        for key in _TORCH_ONLY_KEYS:
+            config.pop(key, None)
+        for fname in TORCH_WEIGHTS:
+            fpath = ckpt_dir / fname
+            if fpath.exists():
+                la = cls(config, device, seed=None)
+                la.load_state_dict(reference_state_dict(
+                    load_weights_file(str(fpath)), la.model.state_dict()))
+                return la
+        if (ckpt_dir / JAX_PARAMS_DIR).exists():
+            raise ValueError(
+                f"{ckpt_dir} holds the JAX package's {JAX_PARAMS_DIR}/ "
+                f"(orbax) weights, which the port does not read; write "
+                f"model.safetensors from the JAX package with "
+                f"LabelAnything.save_torch_compatible")
+        raise FileNotFoundError(f"No weights found under {ckpt_dir}")
+
+    def save_pretrained(self, out_dir: str) -> None:
+        """``config.json`` and ``model.safetensors`` (the reference-layout
+        state dict) under ``out_dir``."""
+        out = pathlib.Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        LabelAnythingConfig(self.config).save(str(out / CONFIG_NAME))
+        save_file(self.model.state_dict(), str(out / "model.safetensors"))
+
+    def save_torch_compatible(self, out_dir: str) -> None:
+        """What :meth:`save_pretrained` writes: the port's weights already
+        are the reference layout, which both packages and the reference
+        read (JAX ``api.py:153-164``)."""
+        self.save_pretrained(out_dir)
 
     def load_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Load a reference-layout state dict; every key must match."""

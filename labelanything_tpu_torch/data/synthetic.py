@@ -105,3 +105,19 @@ def random_full_batch(**kw) -> Dict[str, np.ndarray]:
         if key in batch:
             batch[key] = batch[key][:, :m + 1]
     return batch
+
+
+def flag_every_class(full: Dict[str, np.ndarray],
+                     shots: int) -> Dict[str, np.ndarray]:
+    """A full batch whose example j (1-based on the image axis) shows class
+    1 + (j - 1) // shots by a mask prompt, as an episode of ways x shots
+    examples does, so every class has a flagged example (the port's own:
+    a class with none has no finite affinity logit, and its pixels an
+    infinite training loss)."""
+    masks = full[BatchKeys.FLAG_MASKS].copy()
+    flags = full[BatchKeys.FLAG_EXAMPLES].copy()
+    for j in range(1, masks.shape[1]):
+        masks[:, j, 1 + (j - 1) // shots] = 1
+        flags[:, j, 1 + (j - 1) // shots] = 1
+    return dict(full, **{BatchKeys.FLAG_MASKS: masks,
+                         BatchKeys.FLAG_EXAMPLES: flags})

@@ -277,7 +277,10 @@ class ImageEncoderViT(nn.Module):
                        dtype=dtype),
                 LayerNorm2d(out_chans, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_last_block_state: bool = False):
+        """With ``return_last_block_state`` (and a neck) a dict of the
+        neck's output, ``last_hidden_state``, and the last block's,
+        ``last_block_state`` (B, H/16, W/16, embed_dim)."""
         x = self.patch_embed(x)
         x = x + self.pos_embed.to(x.dtype)
         for block in self.blocks:
@@ -285,4 +288,9 @@ class ImageEncoderViT(nn.Module):
                 x = checkpoint(block, x, use_reentrant=False)
             else:
                 x = block(x)
-        return x if self.neck is None else self.neck(x)
+        if self.neck is None:
+            return x
+        y = self.neck(x)
+        if return_last_block_state:
+            return {"last_hidden_state": y, "last_block_state": x}
+        return y

@@ -99,29 +99,39 @@ class Lam(nn.Module):
         return self.prompt_encoder(support_embeddings, points, boxes, masks,
                                    flag_examples, generator)
 
-    def _decode(self, query_embeddings: torch.Tensor, pe_result: dict,
-                dims: torch.Tensor,
-                support_embeddings: Optional[torch.Tensor] = None,
-                flag_examples: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The affinity decoder also takes the support images' features and
-        the example flags (JAX ``lam.py:183-190``)."""
-        pe = self.prompt_encoder.get_dense_pe()
+    def get_dense_pe(self) -> torch.Tensor:
+        return self.prompt_encoder.get_dense_pe()
+
+    def _decode_raw(self, query_embeddings: torch.Tensor, pe_result: dict,
+                    support_embeddings: Optional[torch.Tensor] = None,
+                    flag_examples: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """Decoder-resolution logits (B, C, h, w). The affinity decoder also
+        takes the support images' features and the example flags (JAX
+        ``lam.py:183-190``)."""
+        pe = self.get_dense_pe()
         if isinstance(self.mask_decoder, AffinityDecoder):
-            seg = self.mask_decoder(query_embeddings, support_embeddings, pe,
-                                    pe_result, flag_examples)
-        else:
-            seg = self.mask_decoder(query_embeddings, pe, pe_result)
-        return self.postprocess_masks_fixed(seg, dims)
+            return self.mask_decoder(query_embeddings, support_embeddings, pe,
+                                     pe_result, flag_examples)
+        return self.mask_decoder(query_embeddings, pe, pe_result)
+
+    def _forward(self, batch: Batch,
+                 generator: Optional[torch.Generator] = None) -> tuple:
+        """(decoder-resolution logits, the prompt encoder's result) of a
+        whole episode, before the postprocess (JAX ``lam.py:170-193``)."""
+        embeddings = self.prepare_embeddings(batch)
+        pe_result = self._encode_prompts(embeddings[:, 1:], batch, generator)
+        seg = self._decode_raw(embeddings[:, 0], pe_result, embeddings[:, 1:],
+                               batch[BatchKeys.FLAG_EXAMPLES])
+        return seg, pe_result
 
     def forward(self, batch: Batch,
                 generator: Optional[torch.Generator] = None) -> dict:
         """``generator`` (training): the CPU ``torch.Generator`` from which
         a ``RandomMatrixEncoder`` draws the classes' bank rows; without it
         class c takes row c."""
-        embeddings = self.prepare_embeddings(batch)
-        pe_result = self._encode_prompts(embeddings[:, 1:], batch, generator)
-        seg = self._decode(embeddings[:, 0], pe_result, batch[BatchKeys.DIMS],
-                           embeddings[:, 1:], batch[BatchKeys.FLAG_EXAMPLES])
+        seg, pe_result = self._forward(batch, generator)
+        seg = self.postprocess_masks_fixed(seg, batch[BatchKeys.DIMS])
         if BatchKeys.FLAG_GTS in batch:
             seg = torch.where(batch[BatchKeys.FLAG_GTS][:, :, None, None], seg,
                               float("-inf"))
@@ -140,6 +150,15 @@ class Lam(nn.Module):
         (reference: lam.py:362-382). Not for the affinity decoder, which
         decodes against the support images themselves: call the model on
         the whole episode."""
+        return self.postprocess_masks_fixed(
+            self.raw_decode(batch, class_embeddings), batch[BatchKeys.DIMS])
+
+    def raw_decode(self, batch: Batch, class_embeddings: dict
+                   ) -> torch.Tensor:
+        """Decoder-resolution logits of the query against cached class
+        embeddings, before the postprocess (JAX ``lam.py:234-245``; used by
+        ``inference.predict_original_resolution``). Not for the affinity
+        decoder (ROADMAP C9), as :meth:`predict`."""
         if isinstance(self.mask_decoder, AffinityDecoder):
             raise NotImplementedError(
                 "predict against cached class embeddings is not defined for "
@@ -147,8 +166,8 @@ class Lam(nn.Module):
                 "features (the JAX Lam.predict hands it support_embeddings="
                 "None, which it cannot take); call the model on the whole "
                 "episode")
-        return self._decode(self.prepare_embeddings(batch)[:, 0],
-                            class_embeddings, batch[BatchKeys.DIMS])
+        return self._decode_raw(self.prepare_embeddings(batch)[:, 0],
+                                class_embeddings)
 
     def postprocess_masks_fixed(self, seg: torch.Tensor,
                                 dims: torch.Tensor) -> torch.Tensor:

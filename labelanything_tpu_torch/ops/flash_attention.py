@@ -125,7 +125,7 @@ _MAX_RR = 256     # kh + kw bound of the kernels' shared-memory r rows
 
 
 def _float_type(x: torch.Tensor) -> torch.dtype:
-    return torch.float64 if x.dtype == torch.float64 else torch.float32
+    return torch.float64 if x.dtype == torch.float64 else _score_type
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -320,19 +320,24 @@ def relpos_packed_bwd_plain(qkv: torch.Tensor, r: torch.Tensor,
 
 # True only inside plain_attention()
 _plain_requested = False
+# the plain twins' score and softmax dtype for fp32 and bf16 operands
+_score_type = torch.float32
 
 
 @contextlib.contextmanager
-def plain_attention() -> Iterator[None]:
+def plain_attention(scores: torch.dtype = torch.float32) -> Iterator[None]:
     """Inside this block the attention functions use their plain twins
     (forward and backward) on any device and launch no kernel. For callers
-    that hold the kernels against the plain versions on the card."""
-    global _plain_requested
-    old, _plain_requested = _plain_requested, True
+    that hold the kernels against the plain versions on the card.
+    ``scores=torch.float64`` computes the twins' scores and softmax in fp64
+    (fp32 and bf16 in and out): a second reference, one rounding apart."""
+    global _plain_requested, _score_type
+    old = _plain_requested, _score_type
+    _plain_requested, _score_type = True, scores
     try:
         yield
     finally:
-        _plain_requested = old
+        _plain_requested, _score_type = old
 
 
 def _check_operands(qkv: torch.Tensor, r: torch.Tensor, n: int,
@@ -806,11 +811,64 @@ def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+# the largest fp32 (B, H, rows, K) score array that the flash backward
+# recomputes at once, in bytes; a longer recompute goes over blocks of query
+# rows (:func:`flash_attention_bwd_plain`). At once, the affinity
+# configuration's (1, 4, 2) and (2, 4, 1) batches (20 GiB arrays) do not fit
+# the H100's 80 GB and (2, 2, 2) peaks at 53.6 GiB; with 4 GiB blocks every
+# batch peaks under 24 GiB (PERF.md section 5).
+RECOMPUTE_BYTES = 4 * 2 ** 30
+
+
+def recompute_rows(q: torch.Tensor, k: torch.Tensor, limit: int) -> int:
+    """Query rows a block of the flash backward's recompute holds: all of
+    them when the (B, H, Q, K) fp32 scores fit in ``limit`` bytes, else the
+    most that fit, a multiple of 64."""
+    b, heads, nq, _ = q.shape
+    per_row = 4 * b * heads * k.shape[2]
+    if per_row * nq <= limit:
+        return nq
+    return max(64, limit // per_row // 64 * 64)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor,
+                              scale: float, rows: Optional[int] = None):
+    """(dq, dk, dv) of :func:`flash_attention_plain` by autograd, the
+    recompute the JAX ``_bwd`` makes. With ``rows`` under the query length
+    the recompute runs over blocks of that many query rows: the softmax is
+    row-wise, so each block's dq is the unblocked one's, and dk, dv sum the
+    blocks' parts (in fp32, cast once)."""
+    nq = q.shape[2]
+    k, v = (x.detach().requires_grad_() for x in (k, v))
+    if rows is None or rows >= nq:
+        with torch.enable_grad():
+            q = q.detach().requires_grad_()
+            out = flash_attention_plain(q, k, v, scale)
+        return torch.autograd.grad(out, (q, k, v), dout)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=_float_type(k), device=k.device)
+    dv = torch.zeros(v.shape, dtype=_float_type(v), device=v.device)
+    for start in range(0, nq, rows):
+        block = slice(start, start + rows)
+        with torch.enable_grad():
+            qb = q[:, :, block].detach().requires_grad_()
+            out = flash_attention_plain(qb, k, v, scale)
+        gq, gk, gv = torch.autograd.grad(out, (qb, k, v), dout[:, :, block])
+        dq[:, :, block] = gq
+        dk += gk
+        dv += gv
+        del out, gq, gk, gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
 class FlashAttention(torch.autograd.Function):
     """``(q, k, v) -> out``: the kernel forward and the plain backward,
     :func:`flash_attention_plain` recomputed under autograd, on any device
-    (the JAX package has no backward kernel for it either). CPU tensors
-    (and any tensor inside :func:`plain_attention`) take the plain forward."""
+    (the JAX package has no backward kernel for it either), over blocks of
+    query rows where its scores would pass :data:`RECOMPUTE_BYTES`. CPU
+    tensors (and any tensor inside :func:`plain_attention`) take the plain
+    forward."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -822,10 +880,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        with torch.enable_grad():
-            q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
-            out = flash_attention_plain(q, k, v, ctx.scale)
-        return (*torch.autograd.grad(out, (q, k, v), dout), None)
+        q, k, v = ctx.saved_tensors
+        rows = recompute_rows(q, k, RECOMPUTE_BYTES)
+        return (*flash_attention_bwd_plain(q, k, v, dout, ctx.scale, rows),
+                None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

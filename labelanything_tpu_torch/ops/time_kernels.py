@@ -30,6 +30,7 @@ job: A, B, B, A.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -238,27 +239,219 @@ def time_fused_window(opts) -> None:
                 card=torch.cuda.get_device_name(0))))
 
 
-def kernel_events(call, calls: int = 20) -> list:
-    """The profiler's CUDA kernel records, one a kernel name, over
-    ``calls`` calls of ``call`` (after a warm-up call): ``key`` the name,
-    ``count`` the launches seen, ``self_device_time_total`` their device
-    time in us. The pass may miss a launch at its end."""
-    from torch.profiler import ProfilerActivity, profile
+def _sentinels(count: int) -> None:
+    """``count`` short kernels (``spin_kernel``, a few hundred cycles each)
+    that are not the port's."""
+    for _ in range(count):
+        torch.cuda._sleep(100)
 
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
+
+# the profiler drops the records of the first kernels of a pass (mostly one
+# or two, at times dozens, on the H100: PERF.md section 7); a pass opens
+# with GUARD_SENTINELS sentinel kernels, so that those are the dropped ones
+GUARD_SENTINELS = 256
+# passes made again because they lost their whole guard
+guard_overruns = 0
+
+
+class GuardOverrun(RuntimeError):
+    """A profiler pass kept no record of its guard's sentinels: it may have
+    dropped the block's first kernels too, so its counts are not read."""
+
+
+def _cuda_records(prof) -> list:
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def sentinels_seen(prof) -> int:
+    """Records of sentinel kernels that a pass kept."""
+    return sum(e.count for e in _cuda_records(prof)
+               if "spin_kernel" in e.key)
+
+
+@contextlib.contextmanager
+def profiled():
+    """A profiler pass over the CUDA kernels launched inside the block,
+    GUARD_SENTINELS sentinels and a synchronize first, a synchronize and
+    one sentinel last. Raises :class:`GuardOverrun` after the block if no
+    leading sentinel's record was kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _sentinels(GUARD_SENTINELS)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+        _sentinels(1)
+        torch.cuda.synchronize()
+    # the drop is of a pass's first records: a leading sentinel kept
+    # (besides the last one) means every later record was kept
+    if sentinels_seen(prof) < 2:
+        raise GuardOverrun(f"the profiler kept {sentinels_seen(prof)} of "
+                           f"{GUARD_SENTINELS + 1} sentinel records")
+
+
+def profile_pass(body) -> tuple:
+    """``body()`` in a :func:`profiled` pass: (the profiler, its result). A
+    pass that lost its guard is made again, three passes at most."""
+    global guard_overruns
+    for attempt in range(3):
+        try:
+            with profiled() as prof:
+                result = body()
+            return prof, result
+        except GuardOverrun:
+            if attempt == 2:
+                raise
+            guard_overruns += 1
+
+
+def kernel_events(call, calls: int = 20) -> list:
+    """The profiler's CUDA kernel records, one a kernel name, over
+    ``calls`` calls of ``call`` (after a warm-up call) in a
+    :func:`profile_pass`: ``key`` the name, ``count`` the launches seen,
+    ``self_device_time_total`` their device time in us (the sentinels'
+    records left out)."""
+    call()
+    torch.cuda.synchronize()
+
+    def body():
+        for _ in range(calls):
+            call()
+
+    prof, _ = profile_pass(body)
+    return [e for e in _cuda_records(prof) if "spin_kernel" not in e.key]
+
+
 def kernel_names(call, calls: int = 20) -> dict:
-    """Launches seen of each CUDA kernel that ``call`` launches, by name
-    (count on the names: a profiler pass may miss a launch at its end)."""
+    """Launches seen of each CUDA kernel that ``call`` launches, by name."""
     return {e.key: e.count for e in kernel_events(call, calls)}
+
+
+def audit_launches(inputs: list, call, twin, counter: str, kernel: str,
+                   out_like, tol, passes: int = 3) -> dict:
+    """Launches of one kernel over ``len(inputs)`` calls on distinct inputs,
+    counted three ways. Before each call a NaN tensor of the output's size
+    (``out_like``: shape, dtype) is made and freed, so the caching
+    allocator hands the call's output that NaN block (checked by address);
+    each output is held against ``twin`` on its own inputs (``tol(out,
+    ref)`` is the largest error allowed): a launch that never ran leaves
+    NaN. Counted: ``LAUNCHES[counter]``, a CUDA event pair around each call
+    (its device time), and the records named ``kernel`` that ``passes``
+    :func:`profile_pass` passes over the same calls see. Returns the counts
+    and times."""
+    from labelanything_tpu_torch.ops import flash_attention as fa
+
+    def calls():
+        pairs, outs, landed = [], [], 0
+        before = fa.LAUNCHES[counter]
+        for x in inputs:
+            block = torch.full(out_like[0], float("nan"), dtype=out_like[1],
+                               device="cuda")
+            address = block.data_ptr()
+            del block
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = call(x)
+            end.record()
+            landed += int(out.data_ptr() == address)
+            pairs.append((start, end))
+            outs.append(out)
+        return pairs, outs, landed, fa.LAUNCHES[counter] - before
+
+    def run(profile: bool):
+        seen = sentinels = None
+        if profile:
+            prof, (pairs, outs, landed, launches) = profile_pass(calls)
+            seen = sum(e.count for e in _cuda_records(prof)
+                       if kernel in e.key)
+            sentinels = sentinels_seen(prof)
+        else:
+            pairs, outs, landed, launches = calls()
+        torch.cuda.synchronize()
+        worst = 0.0
+        for x, out in zip(inputs, outs):
+            ref = twin(x)
+            err = (out.float() - ref.float()).abs().max().item()
+            if not err <= tol(out, ref):      # NaN fails here
+                raise RuntimeError(f"{kernel}: a call's output is off the "
+                                   f"twin by {err}")
+            worst = max(worst, err)
+        return dict(launches=launches, nan_prefilled=landed,
+                    event_ms=[s.elapsed_time(e) for s, e in pairs],
+                    profiler_seen=seen, sentinels_seen=sentinels,
+                    max_abs_err=worst)
+
+    with torch.no_grad():
+        call(inputs[0])
+        torch.cuda.synchronize()
+        return {"events": run(False),
+                "profiler": [run(True) for _ in range(passes)]}
+
+
+def audit_global_kernels(calls: int = 20, passes: int = 3) -> dict:
+    """:func:`audit_launches` for the two wgmma forward kernels, K1 (ViT-B's
+    global block, bf16, one image) and K5 global (ViT-H's, heads 80 wide),
+    and the records of K3's three kernels by name in ``passes``
+    :func:`profile_pass` passes at the training step's shape. Returns the
+    records by kernel."""
+    from labelanything_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(5)
+    records = {}
+    for name, (b, (kh, kw), heads, dh) in (
+            ("relpos_global", SHAPES["relpos_global"]),
+            ("relpos_packed_global", SHAPES["relpos_packed_global"])):
+        n, c = kh * kw, heads * dh
+        inputs = []
+        for _ in range(calls):
+            qkv = torch.from_numpy(rng.standard_normal(
+                (b, n, 3 * c), np.float32)).cuda().bfloat16()
+            r = torch.from_numpy(0.5 * rng.standard_normal(
+                (b, n, heads * (kh + kw)), np.float32)).cuda().bfloat16()
+            if name == "relpos_packed_global":
+                qkv = qkv.view(b, n, 3 * heads, dh).permute(0, 2, 1, 3)
+                r = r.view(b, n, heads, kh + kw).permute(0, 2, 1, 3)
+            inputs.append((qkv, r))
+        args = (dh ** -0.5, (kh, kw), heads)
+        if name == "relpos_global":
+            call = lambda x: fa.flash_attention_relpos_lanes(*x, *args)
+            twin = lambda x: fa.relpos_attention_plain(*x, *args)
+            kernel = fa.global_kernel(torch.bfloat16, (kh, kw))
+        else:
+            call = lambda x: fa.flash_attention_relpos_packed(*x, *args)
+            twin = lambda x: fa.relpos_packed_plain(*x, *args)
+            kernel = fa.packed_global_kernel(torch.bfloat16, dh, (kh, kw))
+        # a stale or unwritten output is off by the outputs' own scale
+        tol = lambda out, ref: 0.05 * (1 + ref.float().abs().max().item())
+        records[name] = dict(kernel=kernel, calls=calls, **audit_launches(
+            inputs, call, twin, name, kernel, ((b, n, c), torch.bfloat16),
+            tol, passes))
+        del inputs
+    b, (kh, kw), heads, dh = BWD_SHAPES["relpos_global"]
+    n = kh * kw
+    f = lambda *s: torch.from_numpy(rng.standard_normal(
+        s, np.float32)).cuda().bfloat16()
+    qkv, r = f(b, n, 3 * heads * dh), 0.5 * f(b, n, heads * (kh + kw))
+    dout = f(b, n, heads * dh)
+    args = (dh ** -0.5, (kh, kw), heads)
+    out, lse = fa._launch("relpos_global", qkv, r, *args, want_lse=True)
+    bwd = lambda: fa._launch_bwd("relpos_global", qkv, r, out, dout, lse,
+                                 *args)
+    runs = []
+    for _ in range(passes):
+        bwd()
+        torch.cuda.synchronize()
+        prof, _ = profile_pass(lambda: [bwd() for _ in range(calls)])
+        runs.append(dict(
+            counts={e.key.split("(")[0].replace("void ", ""): e.count
+                    for e in _cuda_records(prof)
+                    if "spin_kernel" not in e.key},
+            sentinels=sentinels_seen(prof)))
+    records["relpos_global_bwd"] = dict(calls=calls, passes=runs)
+    return records
 
 
 def kernel_ms(call, calls: int = 20) -> dict:

@@ -137,6 +137,19 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             for key, value in state.items()}
 
 
+def reference_state_dict(state: Dict[str, Any],
+                         model_keys) -> Dict[str, torch.Tensor]:
+    """A checkpoint's state dict in the port's names: keys the model has
+    stay, the others get the names :func:`state_dict_from_jax` gives the
+    JAX package's export (``save_torch_compatible``), which leaves the SAM
+    encoder's and the affinity up-convs' names as flax has them."""
+    state = {k: torch.as_tensor(np.asarray(v)) if not isinstance(
+        v, torch.Tensor) else v for k, v in state.items()}
+    known = set(model_keys)
+    return {key if key in known else _apply_renames(key, _ENCODER_RENAMES):
+            value for key, value in _affinity_names(state).items()}
+
+
 def init_weights(module: nn.Module, seed: int = 0) -> None:
     """Seeded random weights for every entry of ``module.state_dict()``.
 

@@ -399,8 +399,9 @@ def test_build_without_nvcc_raises_clear_error(monkeypatch, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port and its slice modules load neither JAX, flax, PIL nor the
-    JAX package itself, so the port runs where none of them is installed."""
+    """The port and its slice modules load neither JAX, flax, PIL,
+    safetensors nor the JAX package itself, so the port runs where none of
+    them is installed."""
     modules = ["labelanything_tpu_torch", "labelanything_tpu_torch.api",
                "labelanything_tpu_torch.data.synthetic",
                "labelanything_tpu_torch.models.registry",
@@ -423,6 +424,12 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.train.metrics",
                "labelanything_tpu_torch.train.substitutor",
                "labelanything_tpu_torch.parallel.train_step",
+               "labelanything_tpu_torch.utils.safetensors",
+               "labelanything_tpu_torch.data.transforms",
+               "labelanything_tpu_torch.data.embeddings",
+               "labelanything_tpu_torch.preprocess",
+               "labelanything_tpu_torch.inference",
+               "labelanything_tpu_torch.train.checkpoint",
                # chip_smoke.py's golden replays
                "tests.torch_golden_replay"]
     code = ("import sys\n"
@@ -434,7 +441,8 @@ def test_port_imports_no_jax():
             + "{'kernel': np.zeros((1, 1, 2, 3), np.float32)}}}})\n"
             + "assert tuple(sd['neck.0.weight'].shape) == (3, 2, 1, 1), sd\n"
             + "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            + "       ('jax', 'flax', 'optax', 'PIL', 'labelanything_tpu')]\n"
+            + "       ('jax', 'flax', 'optax', 'PIL', 'safetensors',\n"
+            + "        'labelanything_tpu')]\n"
             + "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = REPO
@@ -450,8 +458,8 @@ def test_port_imports_no_jax():
                     words = line.split()
                     if words[:1] in (["import"], ["from"]):
                         assert words[1].split(".")[0] not in (
-                            "jax", "flax", "optax", "labelanything_tpu"), (
-                                name, line)
+                            "jax", "flax", "optax", "PIL", "safetensors",
+                            "labelanything_tpu"), (name, line)
 
 
 @pytest.mark.parametrize("kwargs", [
