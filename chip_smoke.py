@@ -4,8 +4,10 @@ embedding), episode decode on precomputed embeddings, the affinity decoder
 on SAM embeddings at 1024 px, then the SAM encoder's two opt-in kernels
 (the fused windowed block and int8 scores) served and embedding, the
 full-size golden fixtures, training on precomputed embeddings (the flagship
-``lam_no_vit`` and the affinity model), and the embedding-cache workflow
-(embed, train with a checkpoint and a resume, save, reload, serve).
+``lam_no_vit`` and the affinity model), the embedding-cache workflow
+(embed, train with a checkpoint and a resume, save, reload, serve), and
+the training entry point (``mae.yaml`` through the CLI, ``Run`` and the
+episode engine on a synthetic COCO root).
 
 Run from the repository root, with no arguments:
 
@@ -201,7 +203,33 @@ reports):
    a fresh state, steps 3 and 4 equal to the straight run's bit for bit;
    ``save_pretrained`` / ``from_pretrained`` and
    ``predict_original_resolution`` at the images' own sizes, the reloaded
-   model's logits equal bit for bit.
+   model's logits equal bit for bit;
+20. the training entry point: a synthetic COCO root (``data/
+   synthetic_coco.py``: MAE_IMAGES images of COCO's sizes with 2 to 6
+   polygons each, COCO's 80 category ids, one 768 x 30 x 30 embedding
+   cache an image), then ``parameters/trainval/coco20i/mae.yaml`` itself,
+   read by the port's YAML reader, its paths pointed at that root, cut to
+   one epoch of MAE_STEPS steps and MAE_VAL validation episodes a set, run
+   through ``labelanything_tpu_torch.cli run`` on the card (bf16, AdamW
+   with warm-up, focal loss, the six batch tuples, all prompt types,
+   16 loader threads, N1K1 / N2K1 validation): finite losses, train and
+   validation lines in ``metrics.jsonl``, ``checkpoints/latest`` and
+   ``best``; per tuple K7's launches a step, instances a launch and
+   cluster size, every step launching it and every TwoWayTransformer call
+   its rule refuses having more than ``KERNEL_MAX_TOKENS`` tokens; a second
+   ``Run`` resumes at epoch 1 with every parameter and AdamW moment equal
+   to the checkpoint's; episodes/s from the third step on, the loop's share
+   of time waiting on the loader, a batch's time in the loop split into
+   its train step (timed between two synchronizations), the loader wait
+   and the rest of the loop, peak memory, a profiler pass over 4 steps
+   (busy share, kernel time by name) beside phase 17's rate; then the
+   same config in fp32 at a constant learning rate for MAE_PARITY_STEPS
+   steps on the card (K7 forced) and on the CPU from the same weights:
+   each step's loss, the first step's AdamW first moments per parameter,
+   the run's first moments and the parameters' change as whole vectors
+   (the rules beside MAE_PARITY_STEPS), a control that makes no update
+   refused; validation mIoU / FB-IoU within MAE_METRIC_ATOL, the argmax
+   agreeing on more than MAE_ARGMAX_AGREE of the pixels.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. The models are the repo's LAM
@@ -214,6 +242,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -2714,6 +2743,8 @@ def phase_flagship() -> dict:
         check(all(np.isfinite(x) for x in losses), f"{what}: losses {losses}")
         check_moved(state.model, before, still[masks], what)
         ms = statistics.median(times) * 1e3
+        if masks and not extra:
+            FLAGSHIP_RATE["masks"] = FLAGSHIP_BATCH / ms * 1e3
         print(f"{what}: {FLAGSHIP_BATCH} episodes of "
               f"{FLAGSHIP_CLASSES - 1}-way 1-shot a step, bf16, losses "
               f"{[round(x, 5) for x in losses]}; steps "
@@ -3064,6 +3095,460 @@ def phase_workflow() -> dict:
     return launches, rate
 
 
+# phase 20: the training entry point (CLI, Run, the episode engine on
+# embedding caches) with parameters/trainval/coco20i/mae.yaml itself on a
+# synthetic COCO root of MAE_IMAGES images; cut to one epoch of MAE_STEPS
+# steps and MAE_VAL validation episodes a set
+MAE_YAML = "parameters/trainval/coco20i/mae.yaml"
+MAE_DIR = "build/mae_run"
+MAE_IMAGES, MAE_STEPS, MAE_VAL = 288, 48, 64
+MAE_PROFILE_STEPS = 4
+# the card's Run against the CPU's, fp32, from the same weights on the same
+# batches at mae.yaml's learning rate held constant (its 1000 warm-up steps
+# taken out, so that the steps move the weights): MAE_PARITY_STEPS steps,
+# each step's loss within MAE_LOSS_RTOL (relative); the AdamW first moments
+# after the first step (a tenth of its gradients, from the same weights)
+# under phase 5's rule per parameter at MAE_MOMENT_REL_L2, phase 3's
+# tolerance of the card against the CPU (those whose gradient is zero in
+# exact arithmetic, as exact_zero_gradient names them, under GRAD_FLOOR of
+# the whole on both sides), and after the run (the running mean of the steps'
+# gradients) within GRAD_REL_L2 as one vector; the parameters' change from
+# the start as one vector within a relative L2 distance of MAE_CHANGE_REL_L2
+# (AdamW divides each element's gradient by that element's own scale, so an
+# element's rounding counts in proportion to its own gradient, and one whose
+# gradient is zero in exact arithmetic, such as a key projection's bias,
+# moves by +-lr on its rounding's sign; tests/test_torch_run.py reads 3.1e-3
+# and 3.8e-3 against the JAX package; a skipped update gives 1). The card's
+# starting state, what a run whose optimizer step is skipped leaves, must be
+# refused by each moment rule and by the change rule. Then MAE_PARITY_VAL
+# validation episodes a set; mIoU / FB-IoU within MAE_METRIC_ATOL (pixels at
+# a near tie of two logits can take either class), argmax over the pixels
+# agreeing on more than MAE_ARGMAX_AGREE
+MAE_PARITY_STEPS, MAE_PARITY_VAL = 2, 8
+MAE_LOSS_RTOL = 1e-4
+MAE_MOMENT_REL_L2 = 1e-3
+MAE_CHANGE_REL_L2 = 1e-2
+MAE_METRIC_ATOL = 2e-3
+MAE_ARGMAX_AGREE = 0.999
+# phase 17's bf16 rate on in-memory batches (with masks), for phase 20
+FLAGSHIP_RATE = {}
+
+
+def mae_config(paths: dict, steps: int = MAE_STEPS, val: int = MAE_VAL,
+               dtype: str = None) -> dict:
+    """mae.yaml as the port's reader gives it, with the synthetic root's
+    annotation and cache paths, one epoch, ``steps`` training steps and
+    ``val`` episodes a validation set (``dtype`` replaces the model's)."""
+    from labelanything_tpu_torch.utils.config import load_yaml
+
+    cfg = load_yaml(MAE_YAML)
+    p = cfg["parameters"]
+    for name, d in p["dataset"]["datasets"].items():
+        d["instances_path"] = [paths["instances_path"]]
+        d["emb_dir"] = [paths["emb_dir"]]
+        if name.startswith("val_"):
+            d["val_num_samples"] = [val]
+    p["train_params"]["max_epochs"] = [1]
+    p["dataloader"]["num_steps"] = [steps]
+    if dtype is not None:
+        p["model"]["dtype"] = [dtype]
+    return cfg
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def first_moments(run) -> dict:
+    """AdamW's first moment of each trained parameter, in float64 on the
+    host."""
+    state = run.state.optimizer.state
+    return {n: state[p]["exp_avg"].detach().cpu().double()
+            for n, p in run.state.model.named_parameters() if p in state}
+
+
+def recorded_steps(run) -> tuple:
+    """(the loss of each of ``run``'s train steps from now on, as tensors
+    on its device; the AdamW first moments after the first of them)."""
+    losses, first, step = [], {}, run.train_step
+
+    def recorded(*args, **kw):
+        state, aux = step(*args, **kw)
+        losses.append(aux["loss"].detach())
+        if not first:
+            first.update(first_moments(run))
+        return state, aux
+
+    run.train_step = recorded
+    return losses, first
+
+
+def exact_zero_gradient(model) -> set:
+    """The parameters whose gradient is zero in exact arithmetic, so that
+    theirs is rounding alone: each attention's key bias (a softmax over the
+    keys is invariant to it) and the class MLP's output bias (added alike
+    to every class's logits, under the loss's softmax over the classes)."""
+    last = model.mask_decoder.class_mlp.layers[-1].bias
+    return {n for n, p in model.named_parameters()
+            if n.endswith("k_proj.bias") or p is last}
+
+
+def moment_verdict(moments: dict, ref: dict, zero: set) -> tuple:
+    """Phase 5's rule at MAE_MOMENT_REL_L2 on each parameter's first moment
+    against the reference's; a parameter of ``zero`` is held instead to
+    under GRAD_FLOOR of the whole on both sides: (refusals, the three worst
+    shares of their bound with their names)."""
+    refused, shares = [], []
+    whole = sum(float(r.norm() ** 2) for r in ref.values()) ** 0.5
+    for name, r in ref.items():
+        if name in zero:
+            d = max(float(moments[name].norm()), float(r.norm()))
+            allowed = GRAD_FLOOR * whole
+        else:
+            d = float((moments[name] - r).norm())
+            allowed = MAE_MOMENT_REL_L2 * max(float(r.norm()),
+                                              GRAD_FLOOR * whole)
+        if d > allowed:
+            refused.append(f"first moment of {name} {d:.3e} > {allowed:.3e}")
+        shares.append((d / allowed, name))
+    return refused, sorted(shares, reverse=True)[:3]
+
+
+def whole_rel_l2(got: dict, ref: dict, base: dict = None) -> float:
+    """|got - ref|_2 / |ref - base|_2 over all of the tensors as one vector
+    (``base`` zero when not given)."""
+    diff = sum(float((got[k] - ref[k]).norm() ** 2) for k in ref)
+    size = sum(float((ref[k] - (0 if base is None else base[k])).norm() ** 2)
+               for k in ref)
+    return (diff / max(size, 1e-60)) ** 0.5
+
+
+def mae_parity(paths: dict) -> None:
+    """The fp32 run on the card (K7 forced, as phase 17 forces it) against
+    the same run on the CPU."""
+    from labelanything_tpu_torch.experiment import Run
+    from labelanything_tpu_torch.train.substitutor import divide_query_examples
+    from labelanything_tpu_torch.utils.config import expand_experiment
+
+    flat = expand_experiment(mae_config(paths, MAE_PARITY_STEPS,
+                                        MAE_PARITY_VAL, "float32"))[0]
+    flat["train_params"].pop("scheduler")
+    lr = flat["train_params"]["initial_lr"]
+    t0 = time.perf_counter()
+    gpu = Run().init(flat, f"{MAE_DIR}/fp32_card", device="cuda")
+    cpu = Run().init(flat, f"{MAE_DIR}/fp32_cpu", device="cpu")
+    cpu.state.model.load_state_dict(
+        {k: v.cpu() for k, v in gpu.state.model.state_dict().items()})
+    host = lambda run: {k: v.detach().cpu().double()
+                        for k, v in run.state.model.named_parameters()}
+    start = host(cpu)
+    (l_gpu, first_gpu), (l_cpu, first_cpu) = (recorded_steps(gpu),
+                                              recorded_steps(cpu))
+    fa.reset_launches()
+    with fp32_twoway_kernel():
+        gpu.train_epoch(0)
+    forced = dict(fa.LAUNCHES)
+    cpu.train_epoch(0)
+    l_gpu, l_cpu = [float(x) for x in l_gpu], [float(x) for x in l_cpu]
+    ref, ref_m, m_gpu = host(cpu), first_moments(cpu), first_moments(gpu)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    zero = exact_zero_gradient(cpu.state.model)
+    refused, worst = moment_verdict(first_gpu, first_cpu, zero)
+    rel_m = whole_rel_l2(m_gpu, ref_m)
+    rel_c = whole_rel_l2(host(gpu), ref, start)
+    # the control: the starting state, as a run without updates leaves it
+    zeros = lambda moments: {k: torch.zeros_like(v)
+                             for k, v in moments.items()}
+    control = (len(moment_verdict(zeros(first_cpu), first_cpu, zero)[0]),
+               whole_rel_l2(zeros(ref_m), ref_m),
+               whole_rel_l2(start, ref, start))
+    print(f"mae fp32 parity: {MAE_PARITY_STEPS} steps at a constant lr "
+          f"{lr}, card (K7 forced, {forced.get('fused_twoway', 0)} "
+          f"launches) vs CPU: losses " + ", ".join(
+              f"{a:.6f} / {b:.6f}" for a, b in zip(l_gpu, l_cpu))
+          + f" (relative {loss_rel:.2e}); the first step's first moments: "
+          f"{len(refused)} refused by phase 5's rule at "
+          f"{MAE_MOMENT_REL_L2} ({len(zero)} whose "
+          f"gradient is zero in exact arithmetic held under its floor; "
+          f"worst " + ", ".join(
+              f"{name} {share:.3f}" for share, name in worst)
+          + " of their bound); after the run the first moments' "
+          f"relative L2 {rel_m:.3e} (allowed {GRAD_REL_L2}), the change's "
+          f"{rel_c:.3e} (allowed {MAE_CHANGE_REL_L2}); control (the starting "
+          f"state, no update): {control[0]} of {len(first_cpu)} first "
+          f"moments refused, relative L2 {control[1]:.3f} and "
+          f"{control[2]:.3f}")
+    check(forced.get("fused_twoway", 0) > 0,
+          f"mae fp32 parity: K7 was not launched ({nonzero(forced)})")
+    check(len(l_gpu) == len(l_cpu) == MAE_PARITY_STEPS,
+          f"mae fp32 parity: steps {len(l_gpu)} / {len(l_cpu)}")
+    check(sorted(ref_m) == sorted(m_gpu)
+          and sorted(first_cpu) == sorted(first_gpu),
+          "mae fp32 parity: the runs trained other parameters")
+    check(loss_rel <= MAE_LOSS_RTOL,
+          f"mae fp32 parity: losses {l_gpu} / {l_cpu}")
+    check(not refused, "mae fp32 parity: " + "; ".join(refused[:5]))
+    check(rel_m <= GRAD_REL_L2 and rel_c <= MAE_CHANGE_REL_L2,
+          f"mae fp32 parity: first moments {rel_m:.3e}, change {rel_c:.3e}")
+    check(control[0] > 0 and control[1] > GRAD_REL_L2
+          and control[2] > MAE_CHANGE_REL_L2,
+          f"mae fp32 parity: the control passed ({control})")
+    with fp32_twoway_kernel():
+        v_gpu = gpu.validate(0)
+    v_cpu = cpu.validate(0)
+    for key in v_cpu:
+        check(abs(v_gpu[key] - v_cpu[key]) <= MAE_METRIC_ATOL,
+              f"mae fp32 parity: {key} card {v_gpu[key]:.5f} cpu "
+              f"{v_cpu[key]:.5f}")
+    same = total = 0
+    for name, loader in gpu.val_loaders.items():
+        for (batch, _), _ in loader:
+            preds = []
+            for run in (gpu, cpu):
+                device_batch, _ = run._device_batch(
+                    batch, example_rows=slice(1, None))
+                inputs, gt = divide_query_examples(device_batch)
+                with torch.no_grad(), (fp32_twoway_kernel()
+                                       if run is gpu else
+                                       contextlib.nullcontext()):
+                    run.state.model.eval()
+                    logits = run.state.model(inputs)[ResultDict.LOGITS]
+                preds.append(logits.argmax(1).cpu())
+            valid = torch.as_tensor(batch[BatchKeys.GROUND_TRUTHS][:, 0]
+                                    != IGNORE_INDEX)
+            same += int((preds[0] == preds[1])[valid].sum())
+            total += int(valid.sum())
+    agree = same / max(total, 1)
+    check(agree > MAE_ARGMAX_AGREE,
+          f"mae fp32 parity: argmax agreement {agree:.6f}")
+    gpu.close()
+    cpu.close()
+    print(f"mae fp32 parity: validation "
+          + ", ".join(f"{k} {v_gpu[k]:.5f} / {v_cpu[k]:.5f}" for k in v_cpu)
+          + f"; argmax agreement {agree:.6f} over {total} pixels; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_mae_run() -> dict:
+    """Phase 20: train mae.yaml's bf16 model through the port's CLI on a
+    synthetic COCO root, resume, time it, hold an fp32 run against the
+    CPU."""
+    import shutil
+
+    from labelanything_tpu_torch import cli
+    from labelanything_tpu_torch.data.synthetic_coco import write_synthetic_coco
+    from labelanything_tpu_torch.experiment import Run
+    from labelanything_tpu_torch.experiment import run as run_mod
+    from labelanything_tpu_torch.train.checkpoint import STATE_FILE
+    from labelanything_tpu_torch.train.substitutor import Substitutor
+    from labelanything_tpu_torch.utils import yaml_subset
+    from labelanything_tpu_torch.utils.config import expand_experiment
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MAE_DIR, ignore_errors=True)
+    paths = write_synthetic_coco(f"{MAE_DIR}/coco", seed=SEED,
+                                 num_images=MAE_IMAGES)
+    t_root = time.perf_counter() - t0
+    cfg = mae_config(paths)
+    params_path, run_dir = f"{MAE_DIR}/mae.yaml", f"{MAE_DIR}/run"
+    with open(params_path, "w") as f:
+        f.write(yaml_subset.dumps(cfg))
+
+    # what the steps launch: per train step its tuple and K7's launches, per
+    # launch its instances and cluster, per TwoWayTransformer call its
+    # tokens and whether K7's rule took it
+    steps, launched, calls = [], [], []
+    capacity = ft.cluster_capacity(torch.device("cuda"))
+    packed, rule, make_step = (ft.fused_twoway_packed, ft.fused_twoway_ok,
+                               run_mod.make_train_step)
+
+    def counted_packed(keys, queries, *args, **kw):
+        g, s, _ = keys.shape
+        launched.append((g, queries.shape[1],
+                         ft.twoway_cluster(g, s, capacity)
+                         if keys.dtype == torch.bfloat16 else 1))
+        return packed(keys, queries, *args, **kw)
+
+    def seen_rule(device, dtype, tokens, *args):
+        ok = rule(device, dtype, tokens, *args)
+        calls.append((tokens, ok))
+        return ok
+
+    def counted_make(**kw):
+        step = make_step(**kw)
+
+        def counted(state, batch, gt, *args, **k):
+            n0, c0 = len(launched), len(calls)
+            # the step's own time, its device work included
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, batch, gt, *args, **k)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            b, m, c = batch[BatchKeys.FLAG_EXAMPLES].shape
+            steps.append(dict(tuple=(b, c - 1, m // max(c - 1, 1)), ms=ms,
+                              launches=launched[n0:], calls=calls[c0:]))
+            return out
+        return counted
+
+    # the batches' times in the loop: Run.batch_times of the epoch
+    epochs, train_epoch = [], run_mod.Run.train_epoch
+
+    def kept_times(self, epoch):
+        out = train_epoch(self, epoch)
+        epochs.append(list(self.batch_times))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with mock.patch.object(ft, "fused_twoway_packed", counted_packed), \
+            mock.patch.object(ft, "fused_twoway_ok", seen_rule), \
+            mock.patch.object(run_mod, "make_train_step", counted_make), \
+            mock.patch.object(run_mod.Run, "train_epoch", kept_times):
+        t1 = time.perf_counter()
+        rc = cli.main(["run", "--parameters", params_path, "--out-dir",
+                       run_dir])
+        t_cli = time.perf_counter() - t1
+    path_launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"mae run: the CLI returned {rc}")
+
+    lines = read_jsonl(f"{run_dir}/metrics.jsonl")
+    losses = [r["train/loss"] for r in lines if "train/loss" in r]
+    check(len(losses) > 0 and all(np.isfinite(losses)),
+          f"mae run: train losses {losses}")
+    summary = next(r for r in lines if "train/avg_loss" in r)
+    vals = {k: v for r in lines for k, v in r.items()
+            if k.startswith("validate/")}
+    for name in ("val_coco20i_N1K1", "val_coco20i_N2K1"):
+        check(f"validate/{name}/miou" in vals, f"mae run: no {name} line")
+    for tag in ("latest", "best"):
+        check(os.path.exists(f"{run_dir}/checkpoints/{tag}/{STATE_FILE}"),
+              f"mae run: no checkpoints/{tag}")
+    check(len(steps) == MAE_STEPS, f"mae run: {len(steps)} train steps")
+    # every step launches K7 (the mask decoder's call always fits it), and
+    # every call its rule refused has more tokens than the kernel takes
+    for st in steps:
+        check(len(st["launches"]) >= 1, f"mae run: a {st['tuple']} step took "
+              f"the module path at every call: {st['calls']}")
+        check(len(st["launches"]) == sum(ok for _, ok in st["calls"]),
+              f"mae run: {st}")
+        check(all(t > ft.KERNEL_MAX_TOKENS for t, ok in st["calls"]
+                  if not ok), f"mae run: a call K7 could take went the "
+              f"module path: {st['calls']}")
+    by_tuple = {}
+    for st in steps:
+        by_tuple.setdefault(st["tuple"], []).append(st)
+    for key in sorted(by_tuple):
+        group = by_tuple[key]
+        inst = sorted({(g, n) for st in group for g, n, _ in st["launches"]})
+        clusters = sorted({cl for st in group for _, _, cl in st["launches"]})
+        refused = sorted({t for st in group for t, ok in st["calls"]
+                          if not ok})
+        print(f"mae run: tuple (batch, ways, shots) {key}: {len(group)} "
+              f"steps, K7 launches a step "
+              f"{sorted({len(st['launches']) for st in group})}, "
+              f"(instances, tokens) a launch {inst}, clusters of {clusters} "
+              f"blocks; calls over K7's {ft.KERNEL_MAX_TOKENS} tokens "
+              f"(module path): {refused or 'none'}")
+    # where a batch's time in the loop goes, from the third batch on: its
+    # train step (timed between two synchronizations of the card), the wait
+    # on the loader, the rest of the loop (the device copies, the class
+    # tables, the confusion folds, the substitutor)
+    times = epochs[0]
+    check(len(times) == MAE_STEPS, f"mae run: {len(times)} batches timed")
+    span = range(2, MAE_STEPS - 1)
+    batch_ms = sum(times[i + 1][0] - times[i][0] for i in span) * 1e3
+    step_ms = sum(steps[i]["ms"] for i in span)
+    wait_ms = sum(times[i][1] for i in span) * 1e3
+    print(f"mae run: batches 3 to {MAE_STEPS - 1} in the loop "
+          f"{batch_ms / len(span):.1f} ms a batch: the train step "
+          f"{step_ms / len(span):.1f} ms ({step_ms / batch_ms:.3f}), the "
+          f"loader wait {wait_ms / len(span):.1f} ms "
+          f"({wait_ms / batch_ms:.3f}), the rest of the loop "
+          f"{(batch_ms - step_ms - wait_ms) / len(span):.1f} ms "
+          f"({(batch_ms - step_ms - wait_ms) / batch_ms:.3f}); the step by "
+          f"tuple (ms): " + ", ".join(
+              f"{key} {np.median([st['ms'] for st in by_tuple[key]]):.1f}"
+              for key in sorted(by_tuple)))
+    all_calls = [ok for st in steps for _, ok in st["calls"]]
+    print(f"mae run: {sum(all_calls)} of {len(all_calls)} TwoWayTransformer "
+          f"calls of the train steps took K7; the rest had more than "
+          f"{ft.KERNEL_MAX_TOKENS} prompt tokens (points and boxes padded to "
+          f"the collate's bucket of 8)")
+
+    # a second Run resumes at epoch 1 from exactly what was saved
+    flat = expand_experiment({"parameters": cfg["parameters"]})[0]
+    run2 = Run().init(flat, run_dir=run_dir, device="cuda")
+    check(run2.start_epoch == 1, f"mae resume: epoch {run2.start_epoch}")
+    saved = torch.load(f"{run_dir}/checkpoints/latest/{STATE_FILE}",
+                       map_location="cuda", weights_only=True)
+    for name, value in run2.state.model.state_dict().items():
+        check(torch.equal(value, saved["model"][name]),
+              f"mae resume: {name} differs from the checkpoint")
+    moments = run2.state.optimizer.state_dict()["state"]
+    for idx, entry in saved["optimizer"]["state"].items():
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            check(torch.equal(moments[idx][key], entry[key]),
+                  f"mae resume: AdamW {key} of parameter {idx}")
+    check(run2.state.step == saved["step"] == len(steps),
+          f"mae resume: step {run2.state.step}")
+
+    # the device's busy share over MAE_PROFILE_STEPS steps of the run
+    batches = []
+    for (batch, gts), _ in run2.train_loader:
+        batches.append(run2._device_batch(batch)[0])
+        if len(batches) == MAE_PROFILE_STEPS:
+            break
+    run2.close()
+    step = run_mod.make_train_step(with_confmat=True)
+
+    def body():
+        t = time.perf_counter()
+        for device_batch in batches:
+            sub = Substitutor(num_points=1, substitute=False,
+                              generator=run2.generator)
+            sub.reset(device_batch)
+            step(run2.state, *next(sub), run2.generator, 1.0)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    prof, wall = time_kernels.profile_pass(body)
+    kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.key
+               and not e.key.startswith("Optimizer.")]
+    busy = sum(t for t, _, _ in kernels)
+    print(f"mae run profile: {MAE_PROFILE_STEPS} steps of the run's batches, "
+          f"{wall * 1e3 / MAE_PROFILE_STEPS:.1f} ms a step under the "
+          f"profiler, kernel time {busy / MAE_PROFILE_STEPS:.1f} ms a step, "
+          f"device busy {busy / (wall * 1e3):.3f} of the window")
+    for t, n, key in sorted(kernels, reverse=True)[:10]:
+        print(f"mae run profile:   {t / MAE_PROFILE_STEPS:8.3f} ms a step, "
+              f"{n:5d} launches  {key[:90]}")
+    rate = summary["train/avg_episodes_per_s"]
+    print(f"mae run: synthetic root {t_root:.1f} s ({MAE_IMAGES} images, "
+          f"768 x 30 x 30 caches); CLI run {t_cli:.1f} s: {MAE_STEPS} steps, "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, epoch "
+          f"{summary['train/avg_epoch_time']:.2f} s, {rate:.2f} "
+          f"episodes/s from the third step on, loader wait "
+          f"{summary['train/avg_loader_wait_share']:.3f} of the epoch; "
+          f"validation " + ", ".join(f"{k.split('/', 1)[1]} {v:.4f}"
+                                     for k, v in sorted(vals.items())
+                                     if not k.endswith("bmiou"))
+          + f"; peak memory {peak / 2**30:.2f} GiB; launches "
+          f"{nonzero(path_launches)}")
+    print(f"mae run: phase 17 on in-memory batches (8 episodes of 5-way "
+          f"1-shot, bf16, with masks) {FLAGSHIP_RATE.get('masks', float('nan')):.1f}"
+          f" episodes/s, this run through the engine {rate:.2f}")
+    mae_parity(paths)
+    print(f"mae run: phase 20 took {time.perf_counter() - t0:.1f} s")
+    return path_launches
+
+
 def main() -> None:
     card = phase_card()
     kind = torch.cuda.get_device_name(0)
@@ -3114,6 +3599,8 @@ def main() -> None:
     clock("18")
     paths.append(phase_workflow()[0])
     clock("19")
+    paths.append(phase_mae_run())
+    clock("20")
     print(f"profiler passes made again for a lost guard: "
           f"{time_kernels.guard_overruns}")
     summary = []

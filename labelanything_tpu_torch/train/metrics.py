@@ -2,16 +2,27 @@
 device-side part of ``labelanything_tpu/train/metrics.py``; reference:
 label_anything/utils/metrics.py:28-52).
 
-Counts come from ``torch.bincount`` over ``target * C + prediction``; the
-JAX package's one-hot matmuls were a device of the TPU. All counts are
-int64. The JAX package's host-side numpy classes (PmIoU, ImIoU,
-StreamingBinaryAUC, dm_iou, macro_f1) are not ported yet.
+Counts are added with ``index_add_`` at ``target * C + prediction``,
+IGNORE_INDEX pixels adding 0, so that no count waits for the device (a
+``bincount`` or a boolean index would: they size their output on the
+host); the JAX package's one-hot matmuls were a device of the TPU. All
+counts are int64.
+
+The host half is the JAX module's numpy functions that ``Run`` reads its
+matrices with (``strict_mean_iou_np``, ``mean_iou_np``, ``fb_iou_np``) and
+``experiment/run.py``'s episode-to-global class tables and confusion folds;
+the numpy counts (``global_confusion``, ``fold_global_confusion``,
+``binary_confusion_np``) are the plain form of what ``Run`` folds on the
+device.
+The numpy metric classes (PmIoU, ImIoU, StreamingBinaryAUC, macro_f1) wait
+for ``experiment/evaluate.py`` (ROADMAP A11).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from ..typing import IGNORE_INDEX
@@ -29,7 +40,9 @@ def confusion_matrix_per_sample(preds: torch.Tensor, target: torch.Tensor,
     p = preds.reshape(b, -1).long().clamp(0, c - 1)
     sample = torch.arange(b, device=preds.device)[:, None]
     index = (sample * c + t) * c + p
-    return torch.bincount(index[valid], minlength=b * c * c).reshape(b, c, c)
+    counts = torch.zeros(b * c * c, dtype=torch.long, device=preds.device)
+    counts.index_add_(0, index.reshape(-1), valid.reshape(-1).long())
+    return counts.reshape(b, c, c)
 
 
 def confusion_matrix(preds: torch.Tensor, target: torch.Tensor,
@@ -58,7 +71,9 @@ def binary_confusion_matrix(preds: torch.Tensor,
     valid = target != IGNORE_INDEX
     t = (torch.where(valid, target, 0) > 0).long()
     p = (preds > 0).long()
-    return torch.bincount((t * 2 + p)[valid], minlength=4).reshape(2, 2)
+    counts = torch.zeros(4, dtype=torch.long, device=preds.device)
+    counts.index_add_(0, (t * 2 + p).reshape(-1), valid.reshape(-1).long())
+    return counts.reshape(2, 2)
 
 
 def iou_per_class(confmat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -90,3 +105,101 @@ def fb_iou(confmat2: torch.Tensor) -> torch.Tensor:
     """Jaccard index of the foreground from a (2, 2) matrix."""
     tp = confmat2[1, 1]
     return tp / (confmat2[1, 0] + confmat2[0, 1] + tp).clamp_min(1)
+
+
+# -- host side (numpy) ------------------------------------------------------ #
+
+def _np_iou_per_class(confmat) -> Tuple[np.ndarray, np.ndarray]:
+    cm = np.asarray(confmat, dtype=np.float64)
+    tp = np.diagonal(cm)
+    union = cm.sum(axis=0) + cm.sum(axis=1) - tp
+    valid = union > 0
+    iou = np.where(valid, tp / np.maximum(union, 1), 0.0)
+    return iou, valid
+
+
+def mean_iou_np(confmat) -> float:
+    iou, valid = _np_iou_per_class(confmat)
+    return float(iou.sum() / max(valid.sum(), 1))
+
+
+def strict_mean_iou_np(confmat) -> float:
+    """:func:`strict_mean_iou` in float64 numpy."""
+    iou, valid = _np_iou_per_class(confmat)
+    macro = iou.sum() / max(valid.sum(), 1)
+    cm = np.asarray(confmat, dtype=np.float64)
+    c = cm.shape[0]
+    bg_union = cm[0, 0] + cm[0, 1:].sum() + cm[1:, 0].sum()
+    bg_iou = cm[0, 0] / max(bg_union, 1)
+    return float((macro * c - bg_iou) / (c - 1))
+
+
+def fb_iou_np(confmat2) -> float:
+    cm = np.asarray(confmat2, dtype=np.float64)
+    tp = cm[1, 1]
+    union = cm[1, 0] + cm[0, 1] + tp
+    return float(tp / max(union, 1))
+
+
+def to_global_lut(classes: List[List[List[int]]], categories: Dict[int, dict],
+                  num_episode_classes: int) -> np.ndarray:
+    """Per-sample table episode class index -> global class index
+    (reference: data/utils.py:568-589), (B, C_episode) int64. The global
+    index follows the categories' insertion order.
+
+    The reference substitutes in place, one episode index at a time, so a
+    global value written earlier that equals a later episode index is
+    substituted again (episode ranks (2, 5): local 1 -> 2 -> 5). The
+    published numbers were measured so, and the table keeps it."""
+    global_index = {cid: i + 1 for i, cid in enumerate(categories.keys())}
+    b = len(classes)
+    lut = np.zeros((b, num_episode_classes), np.int64)
+    for i, sample_classes in enumerate(classes):
+        episode_cats = sorted(set(
+            c for img_classes in sample_classes for c in img_classes))
+        for k in range(num_episode_classes):
+            v = k
+            for j, cid in enumerate(episode_cats):
+                if v == j + 1:
+                    v = global_index.get(cid, v)
+            lut[i, k] = v
+    return lut
+
+
+def global_confusion(preds: np.ndarray, gts: np.ndarray, lut: np.ndarray,
+                     num_global: int) -> np.ndarray:
+    """Map full-resolution episode predictions and targets through the
+    tables and count one global (G, G) matrix."""
+    b = preds.shape[0]
+    cm = np.zeros((num_global, num_global), np.int64)
+    for i in range(b):
+        valid = gts[i] != IGNORE_INDEX
+        p = lut[i][np.clip(preds[i][valid], 0, lut.shape[1] - 1)]
+        t = lut[i][np.clip(gts[i][valid], 0, lut.shape[1] - 1)]
+        idx = t * num_global + p
+        cm += np.bincount(idx, minlength=num_global * num_global).reshape(
+            num_global, num_global)
+    return cm
+
+
+def fold_global_confusion(cm: np.ndarray, cm_ps: np.ndarray, lut: np.ndarray,
+                          num_global: int) -> np.ndarray:
+    """Fold per-sample episode matrices (B, C_ep, C_ep) into the global
+    matrix ``cm`` through the tables, in place: the counts of
+    :func:`global_confusion` at C_ep ** 2 work per sample."""
+    b = cm_ps.shape[0]
+    for i in range(b):
+        idx = lut[i][:, None] * num_global + lut[i][None, :]
+        cm += np.bincount(
+            idx.ravel(), weights=cm_ps[i].ravel(),
+            minlength=num_global * num_global,
+        ).reshape(num_global, num_global).astype(np.int64)
+    return cm
+
+
+def binary_confusion_np(preds: np.ndarray, gts: np.ndarray) -> np.ndarray:
+    """Foreground / background counts (2, 2) of numpy arrays."""
+    valid = gts != IGNORE_INDEX
+    p = (preds[valid] > 0).astype(np.int64)
+    t = (gts[valid] > 0).astype(np.int64)
+    return np.bincount(t * 2 + p, minlength=4).reshape(2, 2)

@@ -15,6 +15,14 @@ class StrEnum(str, enum.Enum):
         return str(self.value)
 
 
+class PromptType(StrEnum):
+    """Visual prompt modalities (reference: data/utils.py:19-22)."""
+
+    BBOX = "bbox"
+    MASK = "mask"
+    POINT = "point"
+
+
 class Label(enum.IntEnum):
     """Prompt flags: a real positive prompt, a real negative point, or
     padding (reference: data/utils.py:25-28)."""
@@ -39,8 +47,35 @@ class BatchKeys(StrEnum):
     FLAG_EXAMPLES = "flag_examples"        # (B, M, C) in {0, 1}
     DIMS = "dims"                          # (B, N, 2) original (H, W)
     RESIZED_DIMS = "resized_dims"          # (B, N, 2) content (h, w)
+    CLASSES = "classes"                    # host metadata (lists)
+    INTENDED_CLASSES = "intended_classes"
+    IMAGE_IDS = "image_ids"
     GROUND_TRUTHS = "ground_truths"        # (B, H, W), IGNORE_INDEX = pad
     FLAG_GTS = "flag_gts"                  # (B, C) classes present
+
+
+class BatchMetadataKeys(StrEnum):
+    """Keys of the sampler-to-dataset metadata dict (reference:
+    data/utils.py:61-65)."""
+
+    PROMPT_TYPES = "prompt_types"
+    NUM_EXAMPLES = "num_examples"
+    NUM_CLASSES = "num_classes"
+    PROMPT_CHOICE_LEVEL = "prompt_choice_level"
+
+
+class AnnFileKeys(StrEnum):
+    """COCO-style annotation file keys (reference: data/utils.py:31-40)."""
+
+    IMAGES = "images"
+    ANNOTATIONS = "annotations"
+    CATEGORIES = "categories"
+    ID = "id"
+    IMAGE_ID = "image_id"
+    CATEGORY_ID = "category_id"
+    IMAGE = "image"
+    ISCROWD = "iscrowd"
+    SEGMENTATION = "segmentation"
 
 
 class ResultDict(StrEnum):

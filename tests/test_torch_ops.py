@@ -400,8 +400,8 @@ def test_build_without_nvcc_raises_clear_error(monkeypatch, tmp_path):
 
 def test_port_imports_no_jax():
     """The port and its slice modules load neither JAX, flax, PIL,
-    safetensors nor the JAX package itself, so the port runs where none of
-    them is installed."""
+    safetensors, PyYAML, click nor the JAX package itself, so the port runs
+    where none of them is installed."""
     modules = ["labelanything_tpu_torch", "labelanything_tpu_torch.api",
                "labelanything_tpu_torch.data.synthetic",
                "labelanything_tpu_torch.models.registry",
@@ -430,6 +430,23 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.preprocess",
                "labelanything_tpu_torch.inference",
                "labelanything_tpu_torch.train.checkpoint",
+               # the training entry point and its episode engine
+               "labelanything_tpu_torch.cli",
+               "labelanything_tpu_torch.experiment",
+               "labelanything_tpu_torch.experiment.run",
+               "labelanything_tpu_torch.experiment.experiment",
+               "labelanything_tpu_torch.utils.config",
+               "labelanything_tpu_torch.utils.yaml_subset",
+               "labelanything_tpu_torch.utils.logging",
+               "labelanything_tpu_torch.data.rng",
+               "labelanything_tpu_torch.data.schema",
+               "labelanything_tpu_torch.data.rle",
+               "labelanything_tpu_torch.data.examples",
+               "labelanything_tpu_torch.data.coco",
+               "labelanything_tpu_torch.data.coco20i",
+               "labelanything_tpu_torch.data.dataset",
+               "labelanything_tpu_torch.data.loader",
+               "labelanything_tpu_torch.data.synthetic_coco",
                # chip_smoke.py's golden replays
                "tests.torch_golden_replay"]
     code = ("import sys\n"
@@ -442,7 +459,7 @@ def test_port_imports_no_jax():
             + "assert tuple(sd['neck.0.weight'].shape) == (3, 2, 1, 1), sd\n"
             + "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             + "       ('jax', 'flax', 'optax', 'PIL', 'safetensors',\n"
-            + "        'labelanything_tpu')]\n"
+            + "        'yaml', 'click', 'labelanything_tpu')]\n"
             + "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = REPO
@@ -459,7 +476,8 @@ def test_port_imports_no_jax():
                     if words[:1] in (["import"], ["from"]):
                         assert words[1].split(".")[0] not in (
                             "jax", "flax", "optax", "PIL", "safetensors",
-                            "labelanything_tpu"), (name, line)
+                            "yaml", "click", "labelanything_tpu"), (name,
+                                                                    line)
 
 
 @pytest.mark.parametrize("kwargs", [
