@@ -5,9 +5,11 @@ on SAM embeddings at 1024 px, then the SAM encoder's two opt-in kernels
 (the fused windowed block and int8 scores) served and embedding, the
 full-size golden fixtures, training on precomputed embeddings (the flagship
 ``lam_no_vit`` and the affinity model), the embedding-cache workflow
-(embed, train with a checkpoint and a resume, save, reload, serve), and
-the training entry point (``mae.yaml`` through the CLI, ``Run`` and the
-episode engine on a synthetic COCO root).
+(embed, train with a checkpoint and a resume, save, reload, serve), the
+training entry point (``mae.yaml`` through the CLI, ``Run`` and the
+episode engine on a synthetic COCO root), and the evaluation protocols
+(``validate --checkpoint``'s fold x rerun protocol on that run, PASCAL-5i
+on a synthetic VOC root, the COCO test protocol).
 
 Run from the repository root, with no arguments:
 
@@ -229,7 +231,43 @@ reports):
    the run's first moments and the parameters' change as whole vectors
    (the rules beside MAE_PARITY_STEPS), a control that makes no update
    refused; validation mIoU / FB-IoU within MAE_METRIC_ATOL, the argmax
-   agreeing on more than MAE_ARGMAX_AGREE of the pixels.
+   agreeing on more than MAE_ARGMAX_AGREE of the pixels;
+21. checkpoint evaluation: ``parameters/validation/COCO/mae.yaml``, its
+   paths pointed at phase 20's root, refuses phase 20's checkpoint by name
+   as it stands (its model block sets ``example_class_attention`` False,
+   mae.yaml's True); with the block matched, ``cli validate --checkpoint
+   <phase 20's run>/checkpoints`` runs its 4 folds x 4 sets, cut to
+   EVAL_RERUNS reruns and EVAL_VAL episodes a set (fp32): every
+   ``fold{i}/<set>_<metric>``, ``mean/miou`` and ``mean/fbiou`` finite,
+   the loader threads gone with the folds' ``Run``s; ``--folds 0
+   --compare`` (on N1K1 and N2K1 at EVAL_PARITY_VAL episodes): the deltas
+   equal result - reference; bf16 on mae.yaml's
+   own N1K1 / N2K1 sets with K7's launches counted at both call sites;
+   each set's batch time in the CLI run (``Run.val_batch_times``: loader
+   wait and loop time; the forward timed between two synchronizations)
+   split into loader wait, forward and the rest, a profiler pass over
+   N2K5 (busy share); fp32 card against CPU on fold 0's N1K1 and N2K1, 1
+   rerun, EVAL_PARITY_VAL episodes: metrics within MAE_METRIC_ATOL, the
+   confusion matrices by ``confusions_agree``;
+22. PASCAL-5i: a synthetic VOC root (``data/synthetic_voc.py``: VOC_IMAGES
+   palette masks of VOC's sizes written by ``data/png.py``, one 768 x 30 x
+   30 cache an image), the ms a mask decode, then
+   ``parameters/trainval/pascal/mae.yaml`` through ``cli run`` (fp32, one
+   epoch of VOC_STEPS steps, VOC_VAL episodes a validation set) and
+   ``cli validate --checkpoint`` on the run it wrote (the run's own
+   validation numbers again); episodes/s, the loader-wait share; fp32 card
+   against CPU: MAE_PARITY_STEPS steps' losses within MAE_LOSS_RTOL, the
+   validation metrics within MAE_METRIC_ATOL and its confusion matrices
+   by ``confusions_agree``;
+23. the COCO test protocol: ``cli test`` on a ``test_coco`` set over
+   phase 20's root (80 categories) under mae.yaml's model block (bf16),
+   TEST_BATCH queries a call: finite metrics, support-set time, query
+   images/s, peak memory, the TwoWayTransformer calls K7's rule refused
+   all over its token limit; on TEST_PARITY_QUERIES queries, fp32 card
+   against CPU within MAE_METRIC_ATOL and ``confusions_agree``; one
+   TEST_LOGIT_QUERIES queries' logits of the fp32 and the bf16 card
+   against the fp32 CPU's by TEST_FP32_REL_L2 / TEST_BF16_RATIO, a
+   control with the columns rolled refused.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. The models are the repo's LAM
@@ -3549,6 +3587,776 @@ def phase_mae_run() -> dict:
     return path_launches
 
 
+# phase 21: the fold x rerun protocol of the validation file on phase 20's
+# run, cut to EVAL_RERUNS of its 5 reruns and EVAL_VAL of its 1000
+# episodes a set; the card against the CPU on EVAL_PARITY_VAL episodes of
+# N1K1 and N2K1, fold 0, 1 rerun, within MAE_METRIC_ATOL
+EVAL_YAML = "parameters/validation/COCO/mae.yaml"
+EVAL_DIR = "build/eval_run"
+EVAL_RERUNS, EVAL_VAL, EVAL_PARITY_VAL = 2, 64, 16
+# the validation file's model block is not the training file's: a
+# checkpoint of mae.yaml loads once the block matches it
+EVAL_MODEL = {"example_class_attention": [True]}
+# phase 22: a synthetic VOC root of VOC_IMAGES images, mae.yaml of
+# PASCAL-5i cut to one epoch of VOC_STEPS steps and VOC_VAL episodes a set
+PASCAL_YAML = "parameters/trainval/pascal/mae.yaml"
+VOC_DIR = "build/voc_run"
+VOC_IMAGES, VOC_STEPS, VOC_VAL = 200, 32, 64
+# phase 23: the test protocol at TEST_BATCH queries a call; the card
+# against the CPU on TEST_PARITY_QUERIES query images
+TEST_DIR = "build/test_run"
+TEST_BATCH, TEST_PARITY_QUERIES = 8, 16
+# one chunk's logits against the fp32 CPU's, each pixel's mean over the
+# classes taken out (``centered_distance``): the fp32 card within
+# TEST_FP32_REL_L2; the bf16 card within TEST_BF16_RATIO x the distance of
+# the same model in bf16 on the CPU (with random weights the classes part
+# by about 0.5 % of the logits' level, so bf16 arithmetic moves the
+# classes' part by about a third, and the argmax by chance)
+TEST_FP32_REL_L2, TEST_BF16_RATIO = 1e-3, 2.0
+TEST_LOGIT_QUERIES = 4
+
+
+def mae_paths() -> dict:
+    """Phase 20's synthetic COCO root."""
+    return {"instances_path": f"{MAE_DIR}/coco/instances.json",
+            "emb_dir": f"{MAE_DIR}/coco/embeddings"}
+
+
+def protocol_config(yaml_path: str, paths: dict, val: int, sets=None,
+                    model: dict = None) -> dict:
+    """The parameter file ``yaml_path`` as the port's reader gives it, its
+    sets' data paths replaced by ``paths`` and ``val`` episodes a
+    validation set; ``sets`` keeps those alone (in every grid), ``model``
+    updates the model block."""
+    from labelanything_tpu_torch.utils.config import load_yaml
+
+    cfg = load_yaml(yaml_path)
+    p = cfg["parameters"]
+    datasets = p["dataset"]["datasets"]
+    for name in list(datasets):
+        if sets is not None and name not in sets:
+            del datasets[name]
+            for grid in cfg.get("other_grids", []):
+                grid.get("dataset", {}).get("datasets", {}).pop(name, None)
+            continue
+        datasets[name].update({k: [v] for k, v in paths.items()})
+        if name.startswith("val_"):
+            datasets[name]["val_num_samples"] = [val]
+    if model:
+        p["model"].update(model)
+    return cfg
+
+
+def write_params(cfg: dict, path: str) -> str:
+    from labelanything_tpu_torch.utils import yaml_subset
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(yaml_subset.dumps(cfg))
+    return path
+
+
+def cli_main(argv: list, log: str) -> int:
+    """``labelanything_tpu_torch.cli.main(argv)``, what it prints written
+    to ``log``."""
+    from labelanything_tpu_torch import cli
+
+    os.makedirs(os.path.dirname(log), exist_ok=True)
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        return cli.main(argv)
+
+
+def close_enough(got: dict, ref: dict, what: str) -> None:
+    """Every number of ``ref`` in ``got`` within MAE_METRIC_ATOL."""
+    check(sorted(got) == sorted(ref), f"{what}: keys {sorted(got)} / "
+          f"{sorted(ref)}")
+    for key, value in ref.items():
+        check(np.isfinite(got[key]) and abs(got[key] - value)
+              <= MAE_METRIC_ATOL, f"{what}: {key} card {got[key]:.5f} cpu "
+              f"{value:.5f}")
+
+
+def confusions_agree(card: tuple, cpu: tuple, what: str,
+                     agree: float = MAE_ARGMAX_AGREE) -> float:
+    """The card's and the CPU's confusion matrices (classes, then
+    background / foreground) of one pass: the same ground-truth count in
+    every row, exactly, and more than ``agree`` of the pixels in the same
+    cell (a pixel whose prediction moved leaves one cell and enters
+    another: half the L1 distance counts the moved pixels). Returns the
+    share in the same cell, the least of the two matrices'."""
+    shares = []
+    for a, b in zip(card, cpu):
+        check(a.shape == b.shape and np.array_equal(a.sum(1), b.sum(1)),
+              f"{what}: confusion rows (ground truth) {a.sum(1)} / "
+              f"{b.sum(1)}")
+        shares.append(1 - np.abs(a - b).sum() / 2 / max(int(b.sum()), 1))
+    check(min(shares) > agree, f"{what}: confusion cells agree on "
+          f"{shares} of the pixels, at most {agree}")
+    return min(shares)
+
+
+def forward_timer(spans: list):
+    """A ``build_on_device`` whose model's forward is timed between two
+    synchronizations: each call appends its seconds to ``spans``."""
+    from labelanything_tpu_torch.experiment import run as run_mod
+
+    build = run_mod.build_on_device
+
+    def timed(*args, **kw):
+        model = build(*args, **kw)
+        start = {}
+
+        def pre(mod, inputs):
+            torch.cuda.synchronize()
+            start["t"] = time.perf_counter()
+
+        def post(mod, inputs, output):
+            torch.cuda.synchronize()
+            spans.append(time.perf_counter() - start["t"])
+
+        model.register_forward_pre_hook(pre)
+        model.register_forward_hook(post)
+        return model
+
+    return timed
+
+
+def validation_recorder(records: list, spans: list = None):
+    """A ``Run._validate_one`` that appends, per pass, the set's name, its
+    ``Run.val_batch_times`` and ``Run.confusions``, and the forward times
+    that ``spans`` gained meanwhile."""
+    from labelanything_tpu_torch.experiment import run as run_mod
+
+    validate_one = run_mod.Run._validate_one
+
+    def kept(self, loader, name, epoch=None):
+        n = len(spans) if spans is not None else 0
+        out = validate_one(self, loader, name, epoch)
+        records.append(dict(name=name, times=self.val_batch_times[name],
+                            confusion=self.confusions[name],
+                            forwards=spans[n:] if spans is not None else []))
+        return out
+
+    return kept
+
+
+def site_counter(counts: dict):
+    """A ``build_on_device`` that tags the model's two TwoWayTransformer
+    call sites: forward hooks add each call's K7 launches to
+    ``counts[site]``."""
+    from labelanything_tpu_torch.experiment import run as run_mod
+
+    build = run_mod.build_on_device
+
+    def tagged(*args, **kw):
+        model = build(*args, **kw)
+        for site in ("prompt_encoder", "mask_decoder"):
+            module = getattr(model, site).transformer
+            before = {}
+
+            def pre(mod, inputs, before=before):
+                before["n"] = fa.LAUNCHES.get("fused_twoway", 0)
+
+            def post(mod, inputs, output, before=before, site=site):
+                counts[site] = (counts.get(site, 0)
+                                + fa.LAUNCHES.get("fused_twoway", 0)
+                                - before["n"])
+
+            module.register_forward_pre_hook(pre)
+            module.register_forward_hook(post)
+        return model
+
+    return tagged
+
+
+def threads_back(before: int) -> int:
+    """The thread count once the loaders' finished producers exit (at most
+    a second)."""
+    import threading
+
+    for _ in range(100):
+        if threading.active_count() <= before:
+            break
+        time.sleep(0.01)
+    return threading.active_count()
+
+
+def phase_eval() -> dict:
+    """Phase 21: ``validate --checkpoint`` on phase 20's run: the
+    validation file's 4 folds through the CLI, ``--folds`` / ``--compare``,
+    bf16 on mae.yaml's own sets with K7 at both call sites, the card
+    against the CPU."""
+    import shutil
+    import threading
+
+    from labelanything_tpu_torch.experiment import Run
+    from labelanything_tpu_torch.experiment import evaluate as ev
+    from labelanything_tpu_torch.experiment import run as run_mod
+    from labelanything_tpu_torch.utils.config import expand_experiment
+
+    t0 = time.perf_counter()
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    paths, ckpt = mae_paths(), f"{MAE_DIR}/run/checkpoints"
+
+    # the file as it stands refuses the checkpoint by name
+    as_is = expand_experiment(protocol_config(EVAL_YAML, paths, EVAL_VAL))[0]
+    run = Run().init(as_is, run_dir=f"{EVAL_DIR}/as_is", device="cuda")
+    loaded = ev._load_model_params(ckpt, run)
+    refusal = None
+    try:
+        ev._check_tree_match(run.state.model, loaded)
+    except ValueError as exc:
+        refusal = str(exc)
+    finally:
+        run.close()
+    check(refusal is not None and "class_example_attention" in refusal,
+          f"eval: the validation file's own model block took the checkpoint "
+          f"({refusal})")
+    print(f"eval: {EVAL_YAML} as it stands refuses mae.yaml's checkpoint: "
+          f"{refusal[:160]}...")
+
+    params = write_params(protocol_config(EVAL_YAML, paths, EVAL_VAL,
+                                          model=EVAL_MODEL),
+                          f"{EVAL_DIR}/validation.yaml")
+    fold_s, validate = [], run_mod.Run.validate
+
+    def timed(self, epoch):
+        t = time.perf_counter()
+        out = validate(self, epoch)
+        fold_s.append(time.perf_counter() - t)
+        return out
+
+    # each pass's batch times and forwards, recorded inside the CLI's Runs
+    records, spans = [], []
+    threads = threading.active_count()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with mock.patch.object(run_mod.Run, "validate", timed), \
+            mock.patch.object(run_mod, "build_on_device",
+                              forward_timer(spans)), \
+            mock.patch.object(run_mod.Run, "_validate_one",
+                              validation_recorder(records, spans)):
+        t1 = time.perf_counter()
+        rc = cli_main(["validate", "--parameters", params, "--checkpoint",
+                       ckpt, "--reruns", str(EVAL_RERUNS), "--out-dir",
+                       f"{EVAL_DIR}/all"], f"{EVAL_DIR}/all.out")
+        t_cli = time.perf_counter() - t1
+    fp32_launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"eval: the CLI returned {rc}")
+    after = threads_back(threads)
+    check(after <= threads, f"eval: {after} threads after the folds, "
+          f"{threads} before")
+    with open(f"{EVAL_DIR}/all/results.json") as f:
+        results = json.load(f)
+    sets = list(expand_experiment(protocol_config(
+        EVAL_YAML, paths, EVAL_VAL))[0]["dataset"]["datasets"])
+    for fold in range(4):
+        for name in sets:
+            for metric in ("miou", "fbiou", "bmiou"):
+                key = f"fold{fold}/{name}_{metric}"
+                check(key in results and np.isfinite(results[key]),
+                      f"eval: {key} {results.get(key)}")
+    check(np.isfinite(results["mean/miou"])
+          and np.isfinite(results["mean/fbiou"]),
+          f"eval: means {results.get('mean/miou')} "
+          f"{results.get('mean/fbiou')}")
+    episodes = 4 * len(sets) * EVAL_RERUNS * EVAL_VAL
+    print(f"eval: validate --checkpoint, 4 folds x {len(sets)} sets x "
+          f"{EVAL_RERUNS} reruns x {EVAL_VAL} episodes (fp32, module path: "
+          f"launches {nonzero(fp32_launches)}): CLI {t_cli:.1f} s, the "
+          f"folds' validation " + ", ".join(f"{t:.1f}" for t in fold_s)
+          + f" s, {episodes / sum(fold_s):.2f} episodes/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, threads {threads} before / {after} "
+          f"after")
+    print("eval: fold table\n" + ev.fold_table(results, list(range(4))))
+    # where a validation batch's time goes in that run, set by set over its
+    # folds and reruns: the loader wait, the forward, the rest (device
+    # copies, class tables, confusion folds)
+    check(len(records) == 4 * len(sets) * EVAL_RERUNS,
+          f"eval: {len(records)} validation passes recorded")
+    for name in sets:
+        mine = [r for r in records if r["name"] == name]
+        for r in mine:
+            check(len(r["forwards"]) == len(r["times"]),
+                  f"eval: {name}: {len(r['forwards'])} forwards in "
+                  f"{len(r['times'])} batches")
+        batches = sum(len(r["times"]) for r in mine)
+        episodes = sum(t[3] for r in mine for t in r["times"])
+        wait = sum(t[1] for r in mine for t in r["times"])
+        total = sum(t[2] for r in mine for t in r["times"])
+        forward = sum(sum(r["forwards"]) for r in mine)
+        print(f"eval: {name} (fp32, the CLI run), {batches} batches of "
+              f"{episodes // batches} episodes: {episodes / total:.2f} "
+              f"episodes/s in the loop, a batch {total * 1e3 / batches:.1f} "
+              f"ms: loader wait {wait / total:.3f}, forward "
+              f"{forward / total:.3f}, the rest "
+              f"{1 - (wait + forward) / total:.3f}")
+
+    # --folds and --compare, on fold 0's N1K1 and N2K1 at
+    # EVAL_PARITY_VAL episodes (the file the card against the CPU reads)
+    pair = ("val_coco20i_N1K1", "val_coco20i_N2K1")
+    small = write_params(protocol_config(
+        EVAL_YAML, paths, EVAL_PARITY_VAL, sets=pair, model=EVAL_MODEL),
+        f"{EVAL_DIR}/validation_parity.yaml")
+    ref = {"mean/miou": 0.5, f"fold0/{sets[0]}_miou": 0.25,
+           "fold1/miou": 0.0}
+    ref_path = f"{EVAL_DIR}/reference.json"
+    with open(ref_path, "w") as f:
+        json.dump(ref, f)
+    rc = cli_main(["validate", "--parameters", small, "--checkpoint", ckpt,
+                   "--folds", "0", "--reruns", "1", "--compare", ref_path,
+                   "--out-dir", f"{EVAL_DIR}/fold0"], f"{EVAL_DIR}/fold0.out")
+    check(rc == 0, f"eval --compare: the CLI returned {rc}")
+    with open(f"{EVAL_DIR}/fold0/results.json") as f:
+        one = json.load(f)
+    deltas = one["deltas_vs_reference"]
+    check(sorted(deltas) == sorted(["mean/miou", f"fold0/{sets[0]}_miou"])
+          and not any(k.startswith("fold1/") for k in one),
+          f"eval --compare: keys {sorted(deltas)}")
+    for key, value in deltas.items():
+        check(value == one[key] - ref[key],
+              f"eval --compare: {key} delta {value} != {one[key]} - "
+              f"{ref[key]}")
+    check(one["max_abs_delta"] == max(abs(v) for v in deltas.values()),
+          f"eval --compare: max_abs_delta {one['max_abs_delta']}")
+    print(f"eval: --folds 0 --compare: deltas " + ", ".join(
+        f"{k} {v:+.5f}" for k, v in sorted(deltas.items()))
+          + f" (= result - reference), max {one['max_abs_delta']:.5f}")
+
+    # bf16 on mae.yaml's own sets: K7 at both call sites
+    bf16 = write_params(protocol_config(MAE_YAML, paths, EVAL_VAL),
+                        f"{EVAL_DIR}/mae_bf16.yaml")
+    sites: dict = {}
+    fa.reset_launches()
+    with mock.patch.object(run_mod, "build_on_device", site_counter(sites)):
+        t1 = time.perf_counter()
+        res_bf16 = ev.evaluate_checkpoint(bf16, ckpt,
+                                          out_dir=f"{EVAL_DIR}/bf16",
+                                          folds=[0], reruns=1)
+        t_bf16 = time.perf_counter() - t1
+    path_launches = dict(fa.LAUNCHES)
+    check(all(sites.get(s, 0) > 0 for s in ("prompt_encoder",
+                                            "mask_decoder")),
+          f"eval bf16: K7 launches by call site {sites}")
+    check(sum(sites.values()) == path_launches.get("fused_twoway", 0),
+          f"eval bf16: sites {sites}, launches {nonzero(path_launches)}")
+    check(all(np.isfinite(v) for v in res_bf16.values()),
+          f"eval bf16: {res_bf16}")
+    print(f"eval: bf16, mae.yaml's N1K1 / N2K1 (fold 0, 1 rerun, {EVAL_VAL} "
+          f"episodes a set): {t_bf16:.1f} s, "
+          f"{2 * EVAL_VAL / t_bf16:.2f} episodes/s with the Run's set-up; "
+          f"K7 launches by call site {sites}; " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sorted(res_bf16.items())))
+
+    # the busy share of a validation pass
+    flat = expand_experiment(protocol_config(EVAL_YAML, paths, EVAL_VAL,
+                                             model=EVAL_MODEL))[0]
+    run = Run().init(flat, run_dir=f"{EVAL_DIR}/timed", device="cuda")
+    run.state.model.load_state_dict(ev._load_model_params(ckpt, run))
+    heavy = "val_coco20i_N2K5"
+
+    def body():
+        t = time.perf_counter()
+        run._validate_one(run.val_loaders[heavy], heavy)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    prof, wall = time_kernels.profile_pass(body)
+    kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.key]
+    busy = sum(t for t, _, _ in kernels)
+    run.close()
+    print(f"eval profile: {heavy}, {EVAL_VAL} episodes, {wall:.2f} s under "
+          f"the profiler, kernel time {busy:.1f} ms, device busy "
+          f"{busy / (wall * 1e3):.3f} of the window")
+    for t, n, key in sorted(kernels, reverse=True)[:6]:
+        print(f"eval profile:   {t:8.2f} ms, {n:5d} launches  {key[:90]}")
+
+    # the card against the CPU: fold 0, N1K1 and N2K1, 1 rerun
+    passes = {"cuda": [], "cpu": []}
+    with mock.patch.object(run_mod.Run, "_validate_one",
+                           validation_recorder(passes["cuda"])):
+        card = ev.evaluate_checkpoint(small, ckpt, out_dir=f"{EVAL_DIR}/card",
+                                      folds=[0], reruns=1, device="cuda")
+    t1 = time.perf_counter()
+    with mock.patch.object(run_mod.Run, "_validate_one",
+                           validation_recorder(passes["cpu"])):
+        cpu = ev.evaluate_checkpoint(small, ckpt, out_dir=f"{EVAL_DIR}/cpu",
+                                     folds=[0], reruns=1, device="cpu")
+    close_enough(card, cpu, "eval parity")
+    check([r["name"] for r in passes["cuda"]] == list(pair)
+          == [r["name"] for r in passes["cpu"]],
+          f"eval parity: passes {passes}")
+    cells = {a["name"]: confusions_agree(a["confusion"], b["confusion"],
+                                         f"eval parity {a['name']}")
+             for a, b in zip(passes["cuda"], passes["cpu"])}
+    # the CLI's --compare run read the same file on the card
+    again = max(abs(one[k] - v) for k, v in card.items())
+    check(again <= MAE_METRIC_ATOL, f"eval: the CLI's fold 0 and "
+          f"evaluate_checkpoint's differ by {again}")
+    print(f"eval parity (fp32, fold 0, {EVAL_PARITY_VAL} episodes of "
+          f"{', '.join(pair)}, CPU {time.perf_counter() - t1:.1f} s): "
+          + ", ".join(f"{k} {card[k]:.5f} / {cpu[k]:.5f}"
+                      for k in sorted(cpu))
+          + f"; the CLI's --compare run on the card within {again:.2e}; "
+          f"confusion cells agreeing " + ", ".join(
+              f"{k} {v:.6f} of {int(passes['cpu'][i]['confusion'][0].sum())}"
+              f" pixels" for i, (k, v) in enumerate(cells.items())))
+    print(f"eval: phase 21 took {time.perf_counter() - t0:.1f} s")
+    return path_launches
+
+
+def pascal_config(voc: dict, steps: int = VOC_STEPS, val: int = VOC_VAL,
+                  dtype: str = None) -> dict:
+    cfg = protocol_config(PASCAL_YAML, voc, val)
+    p = cfg["parameters"]
+    p["train_params"]["max_epochs"] = [1]
+    p["dataloader"]["num_steps"] = [steps]
+    if dtype is not None:
+        p["model"]["dtype"] = [dtype]
+    return cfg
+
+
+def phase_pascal() -> dict:
+    """Phase 22: PASCAL-5i: a synthetic VOC root, ``cli run`` on
+    trainval/pascal/mae.yaml (trains and validates), ``validate
+    --checkpoint`` on its run, the card against the CPU."""
+    import glob
+    import shutil
+
+    from labelanything_tpu_torch.data import png
+    from labelanything_tpu_torch.data.synthetic_voc import write_synthetic_voc
+    from labelanything_tpu_torch.experiment import Run
+    from labelanything_tpu_torch.utils.config import expand_experiment
+
+    t0 = time.perf_counter()
+    shutil.rmtree(VOC_DIR, ignore_errors=True)
+    voc = write_synthetic_voc(f"{VOC_DIR}/voc", seed=SEED,
+                              num_images=VOC_IMAGES)
+    t_root = time.perf_counter() - t0
+    masks = sorted(glob.glob(f"{VOC_DIR}/voc/SegmentationClass/*.png"))
+    t = time.perf_counter()
+    segs = [png.read_png(m) for m in masks]
+    decode_ms = {"no filter (as written: libpng's choice for a palette)":
+                 (time.perf_counter() - t) * 1e3 / len(masks)}
+    for rows, label in (("adaptive", "adaptive"), (4, "Paeth")):
+        blobs = [png.encode_png(s, png.voc_palette(), filters=rows)
+                 for s in segs[:40]]
+        t = time.perf_counter()
+        for b, seg in zip(blobs, segs):
+            check(np.array_equal(png.decode_png(b)[0], seg),
+                  f"pascal: a mask under filter {rows} read back otherwise")
+        decode_ms[label] = (time.perf_counter() - t) * 1e3 / len(blobs)
+    print(f"pascal: synthetic VOC root {t_root:.1f} s ({VOC_IMAGES} masks of "
+          f"VOC's sizes, 768 x 30 x 30 caches); ms a mask decode "
+          f"(data/png.py, on the card machine's host): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in decode_ms.items()))
+
+    cfg = pascal_config(voc)
+    params, run_dir = (write_params(cfg, f"{VOC_DIR}/pascal.yaml"),
+                       f"{VOC_DIR}/run")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t1 = time.perf_counter()
+    rc = cli_main(["run", "--parameters", params, "--out-dir", run_dir],
+                  f"{VOC_DIR}/run.out")
+    t_cli = time.perf_counter() - t1
+    path_launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"pascal run: the CLI returned {rc}")
+    lines = read_jsonl(f"{run_dir}/metrics.jsonl")
+    losses = [r["train/loss"] for r in lines if "train/loss" in r]
+    check(len(losses) > 0 and all(np.isfinite(losses)),
+          f"pascal run: train losses {losses}")
+    summary = next(r for r in lines if "train/avg_loss" in r)
+    vals = {k.split("/", 1)[1]: v for r in lines for k, v in r.items()
+            if k.startswith("validate/")}
+    for name in ("val_pascal5i_N1K1", "val_pascal5i_N2K1"):
+        check(f"{name}/miou" in vals and np.isfinite(vals[f"{name}/miou"]),
+              f"pascal run: no {name} line")
+    rc = cli_main(["validate", "--parameters", params, "--checkpoint",
+                   f"{run_dir}/checkpoints", "--out-dir", f"{VOC_DIR}/eval"],
+                  f"{VOC_DIR}/eval.out")
+    check(rc == 0, f"pascal validate: the CLI returned {rc}")
+    with open(f"{VOC_DIR}/eval/results.json") as f:
+        results = json.load(f)
+    # the run validated its last weights with the same seeds
+    worst = 0.0
+    for key, value in vals.items():
+        name, metric = key.split("/")
+        got = results[f"fold0/{name}_{metric}"]
+        worst = max(worst, abs(got - value))
+        check(abs(got - value) <= MAE_METRIC_ATOL,
+              f"pascal validate: {key} {got} against the run's {value}")
+    print(f"pascal run: CLI {t_cli:.1f} s, {VOC_STEPS} steps (fp32, module "
+          f"path: launches {nonzero(path_launches)}), loss {losses[0]:.5f} "
+          f"-> {losses[-1]:.5f}, {summary['train/avg_episodes_per_s']:.2f} "
+          f"episodes/s from the third step on, loader wait "
+          f"{summary['train/avg_loader_wait_share']:.3f} of the epoch, peak "
+          f"memory {peak / 2**30:.2f} GiB; validation " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sorted(vals.items())
+              if not k.endswith("bmiou"))
+          + f"; validate --checkpoint gives the run's own numbers "
+          f"(largest difference {worst:.2e})")
+
+    # the card against the CPU: the first steps' losses, then validation
+    flat = expand_experiment(pascal_config(voc, MAE_PARITY_STEPS,
+                                           MAE_PARITY_VAL))[0]
+    flat["train_params"].pop("scheduler")
+    gpu = Run().init(flat, f"{VOC_DIR}/fp32_card", device="cuda")
+    cpu = Run().init(flat, f"{VOC_DIR}/fp32_cpu", device="cpu")
+    cpu.state.model.load_state_dict(
+        {k: v.cpu() for k, v in gpu.state.model.state_dict().items()})
+    (l_gpu, _), (l_cpu, _) = recorded_steps(gpu), recorded_steps(cpu)
+    t1 = time.perf_counter()
+    gpu.train_epoch(0)
+    cpu.train_epoch(0)
+    l_gpu, l_cpu = [float(x) for x in l_gpu], [float(x) for x in l_cpu]
+    check(len(l_gpu) == len(l_cpu) == MAE_PARITY_STEPS,
+          f"pascal parity: steps {len(l_gpu)} / {len(l_cpu)}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    check(loss_rel <= MAE_LOSS_RTOL,
+          f"pascal parity: losses {l_gpu} / {l_cpu}")
+    v_gpu, v_cpu = gpu.validate(0), cpu.validate(0)
+    close_enough(v_gpu, v_cpu, "pascal parity")
+    cells = {name: confusions_agree(gpu.confusions[name],
+                                    cpu.confusions[name],
+                                    f"pascal parity {name}")
+             for name in cpu.val_loaders}
+    gpu.close()
+    cpu.close()
+    print(f"pascal parity (fp32, {MAE_PARITY_STEPS} steps at a constant lr, "
+          f"{MAE_PARITY_VAL} validation episodes a set; "
+          f"{time.perf_counter() - t1:.1f} s): losses " + ", ".join(
+              f"{a:.6f} / {b:.6f}" for a, b in zip(l_gpu, l_cpu))
+          + f" (relative {loss_rel:.2e}); " + ", ".join(
+              f"{k} {v_gpu[k]:.5f} / {v_cpu[k]:.5f}" for k in sorted(v_cpu))
+          + "; confusion cells agreeing " + ", ".join(
+              f"{k} {v:.6f}" for k, v in cells.items()))
+    print(f"pascal: phase 22 took {time.perf_counter() - t0:.1f} s")
+    return path_launches
+
+
+def test_protocol_config(paths: dict, dtype: str = None) -> dict:
+    """A ``test_coco`` set on ``paths`` under the model block of
+    mae.yaml (its frame and resize), its support prompts drawn from
+    ``SEED`` (a test set takes no ``common`` parameters)."""
+    from labelanything_tpu_torch.utils.config import load_yaml
+
+    p = load_yaml(MAE_YAML)["parameters"]
+    model = dict(p["model"])
+    if dtype is not None:
+        model["dtype"] = [dtype]
+    common = p["dataset"]["common"]
+    frame = {"image_size": common["image_size"],
+             "custom_preprocess": common["custom_preprocess"]}
+    return {"parameters": {
+        "seed": [SEED], "model": model, "train_params": {},
+        "dataset": {"datasets": {"test_coco": {
+            **{k: [v] for k, v in paths.items()}, **frame, "seed": [SEED]}},
+            "common": dict(frame)},
+        "dataloader": {}}}
+
+
+def test_logits(run, set_params: dict, queries: int) -> tuple:
+    """(fp32 logits on the host, ground truth) of the test set's first
+    ``queries`` images, as ``Run._test_one`` makes them: class embeddings
+    of the support batch, then ``predict`` on one chunk."""
+    from labelanything_tpu_torch.data.test import CocoLVISTestDataset
+    from labelanything_tpu_torch.experiment.run import drop_absent_modalities
+
+    dataset = CocoLVISTestDataset(**set_params)
+    to_device = lambda v: torch.from_numpy(np.asarray(v)).to(run.device)
+    model = run.state.model.eval()
+    with torch.no_grad():
+        support = drop_absent_modalities(dataset.extract_prompts())
+        embs = model.generate_class_embeddings(
+            {k: to_device(v) for k, v in support.items()})
+        batch, gt = dataset.collate_fn([dataset[i] for i in range(queries)])
+        logits = model.predict({k: to_device(v) for k, v in batch.items()},
+                               embs)
+    return logits.float().cpu(), torch.from_numpy(gt)
+
+
+def centered_distance(got: torch.Tensor, ref: torch.Tensor,
+                      valid: torch.Tensor) -> float:
+    """Relative L2 distance of two (B, C, H, W) logits over the valid
+    pixels, each pixel's mean over the classes taken out first: what
+    separates the classes, not their common level."""
+    def centered(x):
+        x = x.permute(0, 2, 3, 1)[valid].double()
+        return x - x.mean(dim=1, keepdim=True)
+
+    c_got, c_ref = centered(got), centered(ref)
+    return float((c_got - c_ref).norm() / c_ref.norm())
+
+
+def phase_test_protocol() -> dict:
+    """Phase 23: ``cli test`` (bf16, mae.yaml's model block, COCO's 80
+    categories of phase 20's root, TEST_BATCH queries a call), then the
+    card against the CPU in fp32 on TEST_PARITY_QUERIES queries."""
+    import shutil
+
+    from labelanything_tpu_torch.data.test import CocoLVISTestDataset
+    from labelanything_tpu_torch.experiment import Run
+    from labelanything_tpu_torch.experiment import run as run_mod
+    from labelanything_tpu_torch.utils.config import expand_experiment
+
+    t0 = time.perf_counter()
+    shutil.rmtree(TEST_DIR, ignore_errors=True)
+    paths = mae_paths()
+    params = write_params(test_protocol_config(paths),
+                          f"{TEST_DIR}/test.yaml")
+    seen, calls, rule = {}, [], ft.fused_twoway_ok
+    test_one = run_mod.Run._test_one
+
+    def kept(self, dataset, name, batch_size):
+        out = test_one(self, dataset, name, batch_size)
+        seen.update(times=dict(self.test_times[name]), metrics=out,
+                    support=len(dataset._extract_support_examples(
+                        dataset.cat2img, dataset.img2cat)),
+                    classes=dataset.num_classes)
+        return out
+
+    def seen_rule(device, dtype, tokens, *args):
+        ok = rule(device, dtype, tokens, *args)
+        calls.append((tokens, ok))
+        return ok
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with mock.patch.object(run_mod.Run, "_test_one", kept), \
+            mock.patch.object(ft, "fused_twoway_ok", seen_rule):
+        t1 = time.perf_counter()
+        rc = cli_main(["test", "--parameters", params, "--out-dir",
+                       f"{TEST_DIR}/run", "--batch-size", str(TEST_BATCH)],
+                      f"{TEST_DIR}/run.out")
+        t_cli = time.perf_counter() - t1
+    path_launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"test: the CLI returned {rc}")
+    metrics, times = seen["metrics"], seen["times"]
+    check(sorted(metrics) == ["fbiou", "miou"]
+          and all(np.isfinite(v) for v in metrics.values()),
+          f"test: metrics {metrics}")
+    check(all(t > ft.KERNEL_MAX_TOKENS for t, ok in calls if not ok),
+          f"test: a call K7 could take went the module path: {calls}")
+    check(sum(ok for _, ok in calls) == path_launches.get("fused_twoway", 0),
+          f"test: K7 calls {calls}, launches {nonzero(path_launches)}")
+    tokens = sorted({t for t, _ in calls})
+    print(f"test: cli test (bf16, {seen['classes']} classes with the "
+          f"background, {seen['support']} support images, "
+          f"{times['queries']} queries in chunks of {TEST_BATCH}): CLI "
+          f"{t_cli:.1f} s, support set {times['support_s']:.2f} s, queries "
+          f"{times['queries'] / times['queries_s']:.2f} images/s, peak "
+          f"memory {peak / 2**30:.2f} GiB; miou {metrics['miou']:.5f}, "
+          f"fbiou {metrics['fbiou']:.5f}; TwoWayTransformer calls "
+          f"{len(calls)}, K7 took {sum(ok for _, ok in calls)} (tokens "
+          f"{tokens[:3]} ... {tokens[-3:]}; over {ft.KERNEL_MAX_TOKENS} "
+          f"the module path); launches {nonzero(path_launches)}")
+
+    # the card against the CPU: fp32, the first queries' images alone
+    with open(paths["instances_path"]) as f:
+        inst = json.load(f)
+    keep = {im["id"] for im in inst["images"][:TEST_PARITY_QUERIES]}
+    anns = [a for a in inst["annotations"] if a["image_id"] in keep]
+    cats = {a["category_id"] for a in anns}
+    small = {"images": [im for im in inst["images"] if im["id"] in keep],
+             "annotations": anns,
+             "categories": [c for c in inst["categories"] if c["id"] in cats]}
+    small_path = f"{TEST_DIR}/instances_{TEST_PARITY_QUERIES}.json"
+    with open(small_path, "w") as f:
+        json.dump(small, f)
+    cfg = test_protocol_config(dict(paths, instances_path=small_path),
+                               dtype="float32")
+    flat = expand_experiment(cfg)[0]
+    set_params = flat["dataset"]["datasets"]["test_coco"]
+    gpu = Run().init(flat, f"{TEST_DIR}/card", device="cuda")
+    cpu = Run().init(flat, f"{TEST_DIR}/cpu", device="cpu")
+    state = {k: v.cpu() for k, v in gpu.state.model.state_dict().items()}
+    cpu.state.model.load_state_dict(state)
+    m_gpu = gpu._test_one(CocoLVISTestDataset(**set_params), "test_coco",
+                          TEST_BATCH)
+    t1 = time.perf_counter()
+    dataset = CocoLVISTestDataset(**set_params)
+    check(len(dataset) == TEST_PARITY_QUERIES,
+          f"test parity: {len(dataset)} queries")
+    m_cpu = cpu._test_one(dataset, "test_coco", TEST_BATCH)
+    t_cpu = time.perf_counter() - t1
+    close_enough(m_gpu, m_cpu, "test parity")
+    ref = cpu.confusions["test_coco"]
+    cell = confusions_agree(gpu.confusions["test_coco"], ref, "test parity")
+    # the card in bf16 (the CLI run's dtype) against the fp32 CPU: the
+    # matrices, then one chunk's logits; a control with the categories'
+    # columns rolled by one must be refused
+    half = Run().init(expand_experiment(test_protocol_config(
+        dict(paths, instances_path=small_path)))[0], f"{TEST_DIR}/bf16",
+        device="cuda")
+    half.state.model.load_state_dict(state)
+    m_half = half._test_one(CocoLVISTestDataset(**set_params), "test_coco",
+                            TEST_BATCH)
+    check(all(np.isfinite(v) for v in m_half.values()),
+          f"test bf16: {m_half}")
+    cells_half = [1 - np.abs(a - b).sum() / 2 / max(int(b.sum()), 1)
+                  for a, b in zip(half.confusions["test_coco"], ref)]
+    half_cpu = Run().init(expand_experiment(test_protocol_config(
+        dict(paths, instances_path=small_path)))[0], f"{TEST_DIR}/bf16_cpu",
+        device="cpu")
+    half_cpu.state.model.load_state_dict(state)
+    l_cpu, gt = test_logits(cpu, set_params, TEST_LOGIT_QUERIES)
+    l_half = test_logits(half, set_params, TEST_LOGIT_QUERIES)[0]
+    valid = gt != IGNORE_INDEX
+    rolled = torch.cat([l_half[:, :1], l_half[:, 1:].roll(1, dims=1)], 1)
+    dist = {"fp32 card": centered_distance(test_logits(
+                gpu, set_params, TEST_LOGIT_QUERIES)[0], l_cpu, valid),
+            "bf16 card": centered_distance(l_half, l_cpu, valid),
+            "control": centered_distance(rolled, l_cpu, valid),
+            "bf16 CPU": centered_distance(test_logits(
+                half_cpu, set_params, TEST_LOGIT_QUERIES)[0], l_cpu, valid),
+            "fp32 CPU rounded to bf16": centered_distance(
+                l_cpu.bfloat16().float(), l_cpu, valid)}
+    bound = TEST_BF16_RATIO * dist["bf16 CPU"]
+    for run in (gpu, cpu, half, half_cpu):
+        run.close()
+    flat_ref = l_cpu.permute(0, 2, 3, 1)[valid]
+    top2 = flat_ref.topk(2, dim=1).values
+    margin = top2[:, 0] - top2[:, 1]
+    spread = float((flat_ref - flat_ref.mean(1, keepdim=True)).std())
+    same = l_half.permute(0, 2, 3, 1)[valid].argmax(1) == flat_ref.argmax(1)
+    by_margin = {t: (float(same[margin > t * spread].float().mean()),
+                     float((margin > t * spread).float().mean()))
+                 for t in (0.0, 0.1, 0.3, 1.0)}
+    print(f"test parity (fp32, {TEST_PARITY_QUERIES} queries, "
+          f"{dataset.num_classes} classes with the background; CPU "
+          f"{t_cpu:.1f} s): " + ", ".join(
+              f"{k} {m_gpu[k]:.5f} / {m_cpu[k]:.5f}" for k in sorted(m_cpu))
+          + f"; confusion cells agreeing {cell:.6f} of "
+          f"{int(ref[0].sum())} pixels; bf16 card " + ", ".join(
+              f"{k} {m_half[k]:.5f}" for k in sorted(m_half))
+          + f", its cells agreeing with the fp32 CPU's {cells_half[0]:.6f} "
+          f"(classes), {cells_half[1]:.6f} (bg / fg)")
+    print(f"test logits against the fp32 CPU's ({TEST_LOGIT_QUERIES} "
+          f"queries, {int(valid.sum())} pixels, |max| "
+          f"{float(flat_ref.abs().max()):.3g}, class spread {spread:.3g}): "
+          f"centered relative L2 " + ", ".join(
+              f"{k} {v:.3e}" for k, v in dist.items())
+          + "; the bf16 argmax agreeing where the fp32 margin passes t x "
+          "spread: " + ", ".join(f"t {t}: {a:.6f} of {n:.3f} of the pixels"
+                                 for t, (a, n) in by_margin.items()))
+    check(dist["fp32 card"] <= TEST_FP32_REL_L2 and dist["bf16 card"]
+          <= bound, f"test logits: centered relative L2 {dist}")
+    check(dist["control"] > bound,
+          f"test logits: the rolled control passed: {dist}")
+    print(f"test: phase 23 took {time.perf_counter() - t0:.1f} s")
+    return path_launches
+
+
 def main() -> None:
     card = phase_card()
     kind = torch.cuda.get_device_name(0)
@@ -3601,6 +4409,12 @@ def main() -> None:
     clock("19")
     paths.append(phase_mae_run())
     clock("20")
+    paths.append(phase_eval())
+    clock("21")
+    paths.append(phase_pascal())
+    clock("22")
+    paths.append(phase_test_protocol())
+    clock("23")
     print(f"profiler passes made again for a lost guard: "
           f"{time_kernels.guard_overruns}")
     summary = []

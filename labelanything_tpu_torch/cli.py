@@ -4,7 +4,8 @@ reference: label_anything/cli.py:12-371), on ``argparse``.
     python -m labelanything_tpu_torch.cli experiment --parameters FILE.yaml
     python -m labelanything_tpu_torch.cli run --parameters FILE.yaml
     python -m labelanything_tpu_torch.cli validate --parameters FILE.yaml \\
-        --checkpoint RUN_DIR/checkpoints
+        --checkpoint RUN_DIR/checkpoints [--folds 0,2] [--compare REF.json]
+    python -m labelanything_tpu_torch.cli test --parameters FILE.yaml
 
 The options keep the JAX CLI's names; ``--device`` (default ``cuda``)
 names the device, ``--device cpu`` runs on the CPU. The JAX CLI's other
@@ -19,7 +20,7 @@ import pathlib
 import sys
 from typing import List, Optional
 
-NOT_PORTED = ("test", "generate_embeddings", "generate_embeddings_huggingface",
+NOT_PORTED = ("generate_embeddings", "generate_embeddings_huggingface",
               "generate_feature_pyramids", "preprocess_clip", "preprocess_voc",
               "pretrain_pe", "generate_gt", "rename_coco20i_json", "benchmark",
               "app")
@@ -43,36 +44,51 @@ def _run(args) -> int:
     return 0
 
 
-def _validate(args) -> int:
-    """Validate the first grid point of the file on its validation sets:
-    the weights of ``--checkpoint`` (a run's ``checkpoints`` directory, whose
-    ``best`` is taken when it has one and ``latest`` otherwise, or one such
-    tag directory), else the seeded initial weights."""
+def _first_run(args):
+    """A ``Run`` of the file's first grid point on ``--device``."""
     from .experiment import Run
-    from .train.checkpoint import CheckpointManager
     from .utils.config import expand_experiment, load_yaml
 
     flat = expand_experiment(load_yaml(args.parameters))[0]
-    if args.reruns is not None:
+    if getattr(args, "reruns", None) is not None:
         flat = {**flat, "val_params": {**flat.get("val_params", {}),
                                        "reruns": args.reruns}}
-    run = Run().init(flat, run_dir=args.out_dir, device=args.device)
+    return Run().init(flat, run_dir=args.out_dir, device=args.device)
+
+
+def _validate(args) -> int:
+    """With ``--checkpoint``: the fold x rerun protocol of
+    ``experiment/evaluate.py`` (every grid point a fold, or ``--folds``).
+    Without: the first grid point validated with the seeded initial
+    weights, as the JAX CLI does."""
     if args.checkpoint is not None:
-        path = pathlib.Path(args.checkpoint)
-        tags = [t for t in ("best", "latest") if (path / t).is_dir()]
-        if tags:
-            directory, tag = path, tags[0]
-        else:
-            directory, tag = path.parent, path.name
-        restored, meta = CheckpointManager(str(directory)).restore(run.state,
-                                                                  tag)
-        if restored is None:
-            print(f"no checkpoint at {path}", file=sys.stderr)
-            return 1
-        print(f"restored {directory / tag} (epoch {meta.get('epoch')})")
-    metrics = run.validate(epoch=0)
-    run.close()
+        from .experiment.evaluate import evaluate_checkpoint
+
+        folds = ([int(x) for x in args.folds.split(",")] if args.folds
+                 else None)
+        results = evaluate_checkpoint(
+            args.parameters, args.checkpoint, out_dir=args.out_dir,
+            folds=folds, reruns=args.reruns, compare=args.compare,
+            device=args.device)
+        print(json.dumps(results, indent=2))
+        return 0
+    run = _first_run(args)
+    try:
+        metrics = run.validate(epoch=0)
+    finally:
+        run.close()
     print(json.dumps(metrics, indent=2))
+    return 0
+
+
+def _test(args) -> int:
+    """The test protocol of the first grid point's ``test_*`` datasets."""
+    run = _first_run(args)
+    try:
+        results = run.test(batch_size=args.batch_size)
+    finally:
+        run.close()
+    print(json.dumps(results, indent=2))
     return 0
 
 
@@ -101,11 +117,26 @@ def build_parser() -> argparse.ArgumentParser:
                        help="validate a checkpoint on the validation sets")
     p.add_argument("--parameters", required=True)
     p.add_argument("--out-dir", default="runs/validate")
-    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="a save_pretrained directory, a run's checkpoints "
+                        "directory (latest before best) or a weights file: "
+                        "runs the fold x rerun protocol of the file")
+    p.add_argument("--folds", default=None,
+                   help="comma-separated grid (fold) indexes; default all")
     p.add_argument("--reruns", default=None, type=int,
                    help="override val_params.reruns")
+    p.add_argument("--compare", default=None,
+                   help="a JSON of reference values to report deltas to")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=_validate)
+
+    p = sub.add_parser("test", help="the test protocol of the test_* sets")
+    p.add_argument("--parameters", required=True)
+    p.add_argument("--out-dir", default="runs/test")
+    p.add_argument("--batch-size", default=8, type=int,
+                   help="queries a predict call")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=_test)
 
     for name in NOT_PORTED:
         sub.add_parser(name, help="not ported yet")
@@ -119,10 +150,10 @@ def main(argv: Optional[List[str]] = None) -> int:
               "yet (ROADMAP A11); use the JAX package's CLI", file=sys.stderr)
         return 2
     args = build_parser().parse_args(argv)
-    for key in ("parameters",):
-        if not pathlib.Path(getattr(args, key)).exists():
-            print(f"--{key}: {getattr(args, key)} does not exist",
-                  file=sys.stderr)
+    for key in ("parameters", "compare"):
+        value = getattr(args, key, None)
+        if value is not None and not pathlib.Path(value).exists():
+            print(f"--{key}: {value} does not exist", file=sys.stderr)
             return 2
     return args.fn(args)
 

@@ -1,7 +1,9 @@
 """Multi-dataset union, batch collate and the variable episode sampler, a
 copy of ``labelanything_tpu/data/dataset.py`` (reference:
-label_anything/data/dataset.py). Of the datasets, COCO / LVIS and COCO-20i
-are ported; a Pascal name raises until ``data/pascal.py`` is (ROADMAP A11).
+label_anything/data/dataset.py). Of the datasets, COCO / LVIS, COCO-20i and
+PASCAL VOC / PASCAL-5i are ported; of the test protocol's, COCO / LVIS
+(``data/test.py``): the cross-domain sets raise until the port decodes
+their images (ROADMAP A10, A11).
 
 The collate pads the class and annotation axes to *bucketed* sizes (next
 multiple of ``annotation_bucket``), as the JAX package does, so both
@@ -31,17 +33,18 @@ def _round_up(n: int, multiple: int) -> int:
 class _NotPorted:
     """Registry entry of a dataset the port does not have yet."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, missing: str):
         self.name = name
+        self.missing = missing
 
     def __call__(self, *args, **kwargs):
         raise NotImplementedError(
-            f"dataset {self.name!r} is not ported yet (data/pascal.py, "
-            "ROADMAP A11)")
+            f"dataset {self.name!r} is not ported yet: {self.missing}")
 
 
 def _registry():
     from .coco20i import Coco20iDataset
+    from .pascal import Pascal5iDataset, PascalDataset
 
     return {
         "coco": CocoLVISDataset,
@@ -50,10 +53,31 @@ def _registry():
         "val_lvis": CocoLVISDataset,
         "coco20i": Coco20iDataset,
         "val_coco20i": Coco20iDataset,
-        "pascal": _NotPorted("pascal"),
-        "pascal5i": _NotPorted("pascal5i"),
-        "val_pascal5i": _NotPorted("val_pascal5i"),
+        "pascal": PascalDataset,
+        "pascal5i": Pascal5iDataset,
+        "val_pascal5i": Pascal5iDataset,
         **_EXTRA_DATASETS,
+    }
+
+
+# the cross-domain sets (JAX data/crossdomain.py) read JPEG, TIFF and RGB
+# PNG images, which the port cannot decode yet
+_CROSSDOMAIN_MISSING = ("data/crossdomain.py reads JPEG / TIFF / RGB PNG "
+                        "images, and the port has no decoder for them "
+                        "(ROADMAP A10, A11)")
+
+
+def test_registry():
+    """The test protocol's datasets by name (JAX ``Run.test``'s table;
+    ``test_kvaris`` is the reference's typo, kept)."""
+    from .test import CocoLVISTestDataset
+
+    return {
+        "test_coco": CocoLVISTestDataset,
+        "test_lvis": CocoLVISTestDataset,
+        **{name: _NotPorted(name, _CROSSDOMAIN_MISSING)
+           for name in ("test_kvasir", "test_kvaris", "test_weedmap",
+                        "test_brain", "test_dram")},
     }
 
 

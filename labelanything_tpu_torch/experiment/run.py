@@ -21,7 +21,9 @@ the batch's episode-to-global class table (reference: data/utils.py:568-589),
 and the host fetches the matrices, the loss sums and the NaN sentinel
 after each batch in which the pass count crosses a multiple of
 ``log_frequency`` (as the JAX loop logs), so that the steps themselves add
-no synchronization. Images are not logged (``utils/visualize.py`` needs PIL and
+no synchronization. ``test()`` runs the test protocol of the ``test_*``
+datasets: class embeddings of one support batch, then the queries in
+chunks. Images are not logged (``utils/visualize.py`` needs PIL and
 is not ported): a configured ``train_image_log_frequency`` /
 ``val_image_log_frequency`` is reported once as skipped.
 """
@@ -29,13 +31,14 @@ is not ported): a configured ``train_image_log_frequency`` /
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..api import build_on_device
-from ..data.dataset import LabelAnythingDataset, VariableBatchSampler
+from ..data.dataset import (LabelAnythingDataset, VariableBatchSampler,
+                            test_registry)
 from ..data.loader import EpisodeLoader
 from ..parallel.train_step import TrainState, init_train_state, make_train_step
 from ..train.checkpoint import CheckpointManager
@@ -45,7 +48,7 @@ from ..train.metrics import (binary_confusion_matrix,
                              fold_confusion_global, fb_iou_np, mean_iou_np,
                              strict_mean_iou_np, to_global_lut)
 from ..train.substitutor import Substitutor, divide_query_examples
-from ..typing import BatchKeys, ResultDict
+from ..typing import IGNORE_INDEX, BatchKeys, ResultDict
 from ..utils.logging import ExperimentLogger, get_logger
 
 logger = get_logger(__name__)
@@ -142,6 +145,15 @@ class Run:
         # per training batch of the last epoch: (clock when the loop asked
         # the loader for it, seconds it waited, episodes)
         self.batch_times: List[tuple] = []
+        # per validation batch of a set's last pass: (clock when the loop
+        # asked the loader for it, seconds it waited, seconds in the loop,
+        # episodes)
+        self.val_batch_times: Dict[str, List[tuple]] = {}
+        # per test dataset: the support set's and the queries' seconds
+        self.test_times: Dict[str, Dict[str, float]] = {}
+        # per validation / test set: the host copies of its last pass's
+        # confusion matrices (classes, then background / foreground)
+        self.confusions: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
 
     # ------------------------------------------------------------------ #
 
@@ -218,6 +230,7 @@ class Run:
                 seed=self.seed)
             self.train_dataset = dataset
 
+        self.test_params = test_params
         self.val_loaders = {}
         for name, p in val_params.items():
             dataset = LabelAnythingDataset({name: p}, common)
@@ -533,7 +546,15 @@ class Run:
         cm2 = torch.zeros((2, 2), dtype=torch.long, device=dev)
         model = self.state.model
         model.eval()
-        for (batch, _gts), _ in loader:
+        times = self.val_batch_times[name] = []
+        batches = iter(loader)
+        while True:
+            t_wait = time.perf_counter()
+            try:
+                (batch, _gts), _ = next(batches)
+            except StopIteration:
+                break
+            t_got = time.perf_counter()
             device_batch, host = self._device_batch(
                 batch, example_rows=slice(1, None))
             lut = self._lut(host, device_batch, categories)
@@ -544,10 +565,107 @@ class Run:
                 confusion_matrix_per_sample(preds, gt, logits.shape[1]),
                 lut, num_global)
             cm2 += binary_confusion_matrix(preds, gt)
+            times.append((t_wait, t_got - t_wait,
+                          time.perf_counter() - t_wait, int(gt.shape[0])))
         cm, cm2 = cm.cpu().numpy(), cm2.cpu().numpy()
+        self.confusions[name] = (cm, cm2)
         # the reference's validate_run triple (run.py:735-742)
         return {
             "miou": strict_mean_iou_np(cm),
             "fbiou": fb_iou_np(cm2),
             "bmiou": mean_iou_np(cm),
         }
+
+    # ------------------------------------------------------------------ #
+    # the test protocol (reference: run.py:744-843)
+    # ------------------------------------------------------------------ #
+
+    def test(self, batch_size: int = 8) -> Dict[str, float]:
+        """Support prompts -> class embeddings -> ``predict`` a query
+        chunk at a time, for every ``test_*`` dataset (built from its own
+        parameters, without ``common``, as the JAX ``Run.test`` does)."""
+        registry = test_registry()
+        assert self.test_params, "no test datasets configured"
+        results: Dict[str, float] = {}
+        for name, p in self.test_params.items():
+            key = name if name in registry else "_".join(name.split("_")[:2])
+            dataset = registry[key](**p)
+            results.update({f"{name}_{k}": v for k, v in self._test_one(
+                dataset, name, batch_size).items()})
+        return results
+
+    @torch.no_grad()
+    def _test_one(self, dataset, name: str, batch_size: int
+                  ) -> Dict[str, float]:
+        """One test set: ``generate_class_embeddings`` once on the support
+        batch, then ``predict`` over chunks of ``batch_size`` queries (the
+        last padded with its own last item, ``row_valid`` zeroing the pad
+        rows). The confusion matrices over the dataset's ``num_classes``
+        classes are folded on the device and fetched every 8 chunks; the
+        host reads no prediction."""
+        dev = self.device
+        model = self.state.model
+        model.eval()
+        to_device = lambda v: torch.from_numpy(np.asarray(v)).to(
+            dev, non_blocking=True)
+        sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+                else (lambda: None))
+        t0 = time.perf_counter()
+        support = drop_absent_modalities(dataset.extract_prompts())
+        class_embs = model.generate_class_embeddings(
+            {k: to_device(v) for k, v in support.items()})
+        sync()
+        t_support = time.perf_counter() - t0
+
+        c = dataset.num_classes
+        cm = np.zeros((c, c), np.int64)
+        cm2 = np.zeros((2, 2), np.int64)
+        window = None
+
+        def fetch():
+            nonlocal window
+            if window is not None:
+                cm[:] += window[0].cpu().numpy()
+                cm2[:] += window[1].cpu().numpy()
+            window = None
+
+        def chunks():
+            chunk = []
+            for i in range(len(dataset)):
+                chunk.append(dataset[i])
+                if len(chunk) == batch_size:
+                    yield chunk
+                    chunk = []
+            if chunk:
+                yield chunk
+
+        t1 = time.perf_counter()
+        queries = 0
+        for count, chunk in enumerate(chunks(), 1):
+            n = len(chunk)
+            batch, gt = dataset.collate_fn(chunk + [chunk[-1]] * (batch_size - n))
+            batch = {k: to_device(v) for k, v in batch.items()}
+            gt = to_device(gt)
+            w = (torch.arange(batch_size, device=dev) < n).long()[:, None, None]
+            preds = model.predict(batch, class_embs).argmax(dim=1)
+            part = (confusion_matrix_per_sample(preds, gt, c) * w).sum(dim=0)
+            fg = torch.where(gt == IGNORE_INDEX, IGNORE_INDEX,
+                             (gt > 0).long())
+            part2 = (confusion_matrix_per_sample(
+                (preds > 0).long(), fg, 2) * w).sum(dim=0)
+            window = ((part, part2) if window is None
+                      else (window[0] + part, window[1] + part2))
+            queries += n
+            if count % 8 == 0:
+                fetch()
+        fetch()
+        self.test_times[name] = {"support_s": t_support,
+                                 "queries_s": time.perf_counter() - t1,
+                                 "queries": queries}
+        self.confusions[name] = (cm, cm2)
+        metrics = {"miou": strict_mean_iou_np(cm), "fbiou": fb_iou_np(cm2)}
+        with self.tracker.phase(f"test/{name}"):
+            self.tracker.log_metrics(metrics)
+        logger.info("test %s: %s", name,
+                    {k: round(v, 4) for k, v in metrics.items()})
+        return metrics

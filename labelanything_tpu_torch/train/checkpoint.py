@@ -92,20 +92,37 @@ class CheckpointManager:
             return True
         return False
 
+    def _recover(self, tag: str) -> pathlib.Path:
+        """The path of ``tag``, completing a swap that a crash cut between
+        its steps (the temporary save is whole)."""
+        path, tmp = self.dir / tag, self.dir / f"{tag}.tmp"
+        if not path.exists() and (tmp / STATE_FILE).exists():
+            os.rename(tmp, path)
+            tmp_meta = self.dir / f"{tag}.meta.json.tmp"
+            if tmp_meta.exists():
+                os.replace(tmp_meta, self._meta_path(tag))
+        return path
+
+    def model_state(self, tag: str = "latest"
+                    ) -> Tuple[Optional[Dict[str, torch.Tensor]],
+                               Dict[str, Any]]:
+        """(the model's state dict of checkpoint ``tag`` on the CPU, meta),
+        or (None, {}) when there is none: the weights alone, for an
+        evaluation whose optimizer need not be the one that trained."""
+        path = self._recover(tag)
+        if not (path / STATE_FILE).exists():
+            return None, {}
+        payload = torch.load(path / STATE_FILE, map_location="cpu",
+                             weights_only=True)
+        return payload["model"], self._read_meta(tag)
+
     def restore(self, state: TrainState, tag: str = "latest",
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[Optional[TrainState], Dict[str, Any]]:
         """Load checkpoint ``tag`` into ``state`` (a train state built as the
         saved one was, on the device to restore onto) and ``generator``:
         (state, meta), or (None, {}) when there is none."""
-        path, tmp = self.dir / tag, self.dir / f"{tag}.tmp"
-        if not path.exists() and (tmp / STATE_FILE).exists():
-            # a crash between the steps of the swap: the temporary save is
-            # complete
-            os.rename(tmp, path)
-            tmp_meta = self.dir / f"{tag}.meta.json.tmp"
-            if tmp_meta.exists():
-                os.replace(tmp_meta, self._meta_path(tag))
+        path = self._recover(tag)
         if not (path / STATE_FILE).exists():
             return None, {}
         device = next(state.model.parameters()).device

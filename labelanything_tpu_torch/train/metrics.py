@@ -14,8 +14,9 @@ matrices with (``strict_mean_iou_np``, ``mean_iou_np``, ``fb_iou_np``) and
 the numpy counts (``global_confusion``, ``fold_global_confusion``,
 ``binary_confusion_np``) are the plain form of what ``Run`` folds on the
 device.
-The numpy metric classes (PmIoU, ImIoU, StreamingBinaryAUC, macro_f1) wait
-for ``experiment/evaluate.py`` (ROADMAP A11).
+The other protocols' metrics (JAX ``train/metrics.py:180-307``) close the
+module: the numpy classes ``PmIoU``, ``ImIoU`` and ``StreamingBinaryAUC``,
+and ``dm_iou`` / ``macro_f1`` of a confusion matrix, numpy or tensor.
 """
 
 from __future__ import annotations
@@ -203,3 +204,133 @@ def binary_confusion_np(preds: np.ndarray, gts: np.ndarray) -> np.ndarray:
     p = (preds[valid] > 0).astype(np.int64)
     t = (gts[valid] > 0).astype(np.int64)
     return np.bincount(t * 2 + p, minlength=4).reshape(2, 2)
+
+
+# -- the other protocols' metrics (reference: utils/metrics.py:54-392,
+# metrics.py) --------------------------------------------------------------- #
+
+class PmIoU:
+    """PANet-protocol mean IoU (reference: utils/metrics.py:54-168 PmIoU).
+
+    Per sample and class, TP / FP / FN are counted only when the class
+    appears in that sample's target; the IoU of summed counts per class is
+    averaged over the requested labels."""
+
+    def __init__(self, max_label: int = 20):
+        self.n = max_label + 1
+        self.tp = np.zeros(self.n)
+        self.fp = np.zeros(self.n)
+        self.fn = np.zeros(self.n)
+        self.present = np.zeros(self.n, bool)
+
+    def update(self, pred, target):
+        pred, target = np.asarray(pred), np.asarray(target)
+        if pred.ndim == 3:
+            for i in range(pred.shape[0]):
+                self.update(pred[i], target[i])
+            return
+        valid = target != IGNORE_INDEX
+        for label in range(self.n):
+            t = target == label
+            if not t.any():
+                continue
+            p = (pred == label) & valid
+            self.present[label] = True
+            self.tp[label] += np.sum(p & t)
+            self.fp[label] += np.sum(p & ~t)
+            self.fn[label] += np.sum(t & ~p)
+
+    def compute(self, labels=None) -> float:
+        labels = np.asarray(labels if labels is not None
+                            else range(1, self.n))
+        keep = labels[self.present[labels]]
+        if keep.size == 0:
+            return float("nan")
+        iou = self.tp[keep] / (self.tp[keep] + self.fp[keep] + self.fn[keep])
+        return float(iou.mean())
+
+
+def dm_iou(confmat, eps: float = 1e-8) -> torch.Tensor:
+    """DENet-protocol mean IoU (reference: utils/metrics.py:216-254 DmIoU):
+    the plain mean over all classes, background included, with the union
+    clipped at ``eps``, so that an absent class counts 0. ``confmat``: a
+    numpy array or a tensor; a float32 scalar tensor comes back."""
+    cm = torch.as_tensor(confmat)
+    tp = cm.diagonal().float()
+    union = (cm.sum(dim=0) + cm.sum(dim=1) - cm.diagonal()).float()
+    return (tp / union.clamp_min(eps)).mean()
+
+
+class ImIoU:
+    """ASNet-protocol mean IoU (reference: utils/metrics.py:258-360 ImIoU):
+    per-episode intersection / union histograms over local ids are added
+    onto global class slots; mIoU is the mean over the classes of interest
+    of inter / max(union, 1)."""
+
+    def __init__(self, class_ids, nclass: int = 20):
+        self.class_ids = np.asarray(class_ids)
+        self.inter = np.zeros(nclass + 1)
+        self.union = np.zeros(nclass + 1)
+
+    def update(self, pred, target, class_map):
+        """``pred`` / ``target`` (H, W) in local ids 0..way; ``class_map``
+        (way + 1,) local -> global (index 0 the background)."""
+        way = len(class_map) - 1
+        pred, target = np.asarray(pred), np.asarray(target)
+        in_range = lambda x: (x >= 0) & (x <= way)
+        inter = np.bincount(
+            pred[(pred == target) & in_range(pred)].astype(int),
+            minlength=way + 1)[: way + 1]
+        a_p = np.bincount(pred[in_range(pred)].astype(int),
+                          minlength=way + 1)[: way + 1]
+        a_t = np.bincount(target[in_range(target)].astype(int),
+                          minlength=way + 1)[: way + 1]
+        np.add.at(self.inter, class_map, inter)
+        np.add.at(self.union, class_map, a_p + a_t - inter)
+
+    def compute(self) -> float:
+        inter = self.inter[self.class_ids]
+        union = self.union[self.class_ids]
+        return float(np.mean(inter / np.maximum(union, 1.0)))
+
+
+def macro_f1(confmat) -> torch.Tensor:
+    """Macro F1 over the classes with support (torchmetrics' macro F1,
+    reference: metrics.py F1). ``confmat``: a numpy array or a tensor; a
+    float32 scalar tensor comes back."""
+    cm = torch.as_tensor(confmat)
+    tp = cm.diagonal()
+    denom = 2 * tp + (cm.sum(dim=0) - tp) + (cm.sum(dim=1) - tp)
+    valid = denom > 0
+    f1 = torch.where(valid, 2 * tp / denom.clamp_min(1), 0.0).float()
+    return f1.sum() / valid.sum().clamp_min(1)
+
+
+class StreamingBinaryAUC:
+    """Binary AUROC from score histograms (reference: metrics.py AUC over
+    torchmetrics' AUROC): scores fall into ``bins`` buckets and the AUC is
+    the trapezoidal integral of the ROC, exact when the scores take at
+    most ``bins`` distinct values, else within O(1 / bins)."""
+
+    def __init__(self, bins: int = 512):
+        self.bins = bins
+        self.pos = np.zeros(bins)
+        self.neg = np.zeros(bins)
+
+    def update(self, scores, target):
+        """``scores`` in [0, 1]; ``target`` binary {0, 1}."""
+        scores = np.clip(np.asarray(scores).reshape(-1), 0.0, 1.0)
+        target = np.asarray(target).reshape(-1)
+        idx = np.minimum((scores * self.bins).astype(int), self.bins - 1)
+        self.pos += np.bincount(idx[target == 1], minlength=self.bins)
+        self.neg += np.bincount(idx[target == 0], minlength=self.bins)
+
+    def compute(self) -> float:
+        tp = np.cumsum(self.pos[::-1])
+        fp = np.cumsum(self.neg[::-1])
+        if tp[-1] == 0 or fp[-1] == 0:
+            return float("nan")
+        tpr = np.concatenate([[0.0], tp / tp[-1]])
+        fpr = np.concatenate([[0.0], fp / fp[-1]])
+        trapezoid = getattr(np, "trapezoid", None) or np.trapz  # numpy < 2
+        return float(trapezoid(tpr, fpr))

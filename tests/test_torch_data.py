@@ -292,6 +292,17 @@ def test_engine_process_mode_matches_thread_mode(coco_root):
 
 
 def test_pascal_names_raise_until_ported():
-    with pytest.raises(NotImplementedError, match="pascal"):
+    """The Pascal names resolve to the ported datasets (which raise, naming
+    ``data_dir``, without a VOC root); the test protocol's cross-domain
+    names raise until the port decodes their images."""
+    assert tds.resolve_dataset("val_pascal5i_N1K1").__name__ == "Pascal5iDataset"
+    assert tds.resolve_dataset("pascal").__name__ == "PascalDataset"
+    with pytest.raises(ValueError, match="data_dir"):
         tds.resolve_dataset("val_pascal5i_N1K1")()
     assert tds.resolve_dataset("val_coco20i_N2K1").__name__ == "Coco20iDataset"
+    tests = tds.test_registry()
+    assert tests["test_coco"].__name__ == "CocoLVISTestDataset"
+    for name in ("test_kvasir", "test_kvaris", "test_weedmap", "test_brain",
+                 "test_dram"):
+        with pytest.raises(NotImplementedError, match="decoder"):
+            tests[name]()

@@ -447,6 +447,12 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.data.dataset",
                "labelanything_tpu_torch.data.loader",
                "labelanything_tpu_torch.data.synthetic_coco",
+               # the evaluation protocols and the PASCAL-5i engine
+               "labelanything_tpu_torch.experiment.evaluate",
+               "labelanything_tpu_torch.data.png",
+               "labelanything_tpu_torch.data.pascal",
+               "labelanything_tpu_torch.data.synthetic_voc",
+               "labelanything_tpu_torch.data.test",
                # chip_smoke.py's golden replays
                "tests.torch_golden_replay"]
     code = ("import sys\n"

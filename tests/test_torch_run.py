@@ -310,7 +310,7 @@ def test_cli_experiment_validate_and_resume(coco_root, tmp_path):
     assert cli.main(["validate", "--parameters", str(params), "--out-dir",
                      str(tmp_path / "val"), "--checkpoint", str(ckpt),
                      "--device", "cpu"]) == 0
-    assert cli.main(["test", "--parameters", str(params)]) == 2
+    assert cli.main(["benchmark", "--parameters", str(params)]) == 2
     assert cli.main(["experiment", "--parameters", str(params), "--parallel",
                      "--device", "cpu"]) == 2
 
