@@ -267,7 +267,38 @@ reports):
    against CPU within MAE_METRIC_ATOL and ``confusions_agree``; one
    TEST_LOGIT_QUERIES queries' logits of the fp32 and the bf16 card
    against the fp32 CPU's by TEST_FP32_REL_L2 / TEST_BF16_RATIO, a
-   control with the columns rolled refused.
+   control with the columns rolled refused;
+24. image decoding: every committed fixture (``tests/fixtures/images``)
+   through the C JPEG decoder (``data/jpeg.py``; the host library of
+   ``data/native.py``, built with the system compiler, also unfilters PNG
+   rows and resizes) and the TIFF / PNG readers, each against PIL's recorded
+   SHA-256 (``pil_decoded.json``), the JPEGs also against the numpy twin
+   bit for bit; the C decoder's ms for the 640 x 480 4:2:0 fixture on one
+   thread, its images/s on DECODE_THREADS threads, the twin's seconds;
+   the PNG unfilter and the resize in C against their numpy twins, and
+   ``preprocess.load_one`` with each (``host_loops``);
+25. ``cli generate_embeddings`` (``vit_b``, 1024 px, bf16, batches of 8)
+   on a synthetic COCO image root (``write_synthetic_coco`` with
+   ``image_sources``: EMBED_IMAGES images, the committed COCO-sized JPEGs
+   copied, every fourth an RGB PNG), under a profiler pass that counts K1
+   and K2 by kernel name (4 and 8 a batch), then again for its images/s;
+   one image's cache against the CPU port's fp32 encoder on the same
+   decoded frame (relative L2 within EMBED_BF16_REL_L2: the card runs
+   bf16); then ``cli generate_gt`` adds every image's ground truth;
+26. ``cli run`` of ``trainval/other/COCO_vit.yaml``'s model and train
+   blocks (``lam_b`` at 1024 px, fp32 as the file sets no dtype, the
+   backbone frozen; ``checkpoint`` and ``use_sam_checkpoint`` taken out:
+   no SAM weights here) on phase 25's ``img_dir`` for VIT_STEPS steps:
+   every step launches K1 (4) and K2 (8), none launches K3 or K4; images
+   a second; the first step's loss of a one-episode batch, card against
+   CPU from the same weights, within VIT_LOSS_RTOL;
+27. ``cli test`` on synthetic roots of the four cross-domain layouts
+   (``data/synthetic_crossdomain.py``: Kvasir's JPEG images and masks,
+   WeedMap's PNG channel tiles, Brain MRI's TIFFs, DRAM's JPEGs with
+   palette PNG labels) under ``parameters/test/*.yaml`` with ``lam_b`` in
+   the model block (the files' ``lam_no_vit`` cannot read images, ROADMAP
+   C13), fp32: finite metrics, K1 and K2 launched; Kvasir's card against
+   CPU within MAE_METRIC_ATOL and ``confusions_agree``.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. The models are the repo's LAM
@@ -3593,7 +3624,9 @@ def phase_mae_run() -> dict:
 # N1K1 and N2K1, fold 0, 1 rerun, within MAE_METRIC_ATOL
 EVAL_YAML = "parameters/validation/COCO/mae.yaml"
 EVAL_DIR = "build/eval_run"
-EVAL_RERUNS, EVAL_VAL, EVAL_PARITY_VAL = 2, 64, 16
+# (1 rerun: each fold's sets, keys and episodes kept, phase 21 halved to
+# keep the script inside its time limit)
+EVAL_RERUNS, EVAL_VAL, EVAL_PARITY_VAL = 1, 64, 16
 # the validation file's model block is not the training file's: a
 # checkpoint of mae.yaml loads once the block matches it
 EVAL_MODEL = {"example_class_attention": [True]}
@@ -4028,7 +4061,7 @@ def phase_pascal() -> dict:
     import glob
     import shutil
 
-    from labelanything_tpu_torch.data import png
+    from labelanything_tpu_torch.data import native, png
     from labelanything_tpu_torch.data.synthetic_voc import write_synthetic_voc
     from labelanything_tpu_torch.experiment import Run
     from labelanything_tpu_torch.utils.config import expand_experiment
@@ -4038,6 +4071,7 @@ def phase_pascal() -> dict:
     voc = write_synthetic_voc(f"{VOC_DIR}/voc", seed=SEED,
                               num_images=VOC_IMAGES)
     t_root = time.perf_counter() - t0
+    native.load_library()       # its first-use build stays out of the times
     masks = sorted(glob.glob(f"{VOC_DIR}/voc/SegmentationClass/*.png"))
     t = time.perf_counter()
     segs = [png.read_png(m) for m in masks]
@@ -4123,11 +4157,11 @@ def phase_pascal() -> dict:
     check(loss_rel <= MAE_LOSS_RTOL,
           f"pascal parity: losses {l_gpu} / {l_cpu}")
     v_gpu, v_cpu = gpu.validate(0), cpu.validate(0)
-    close_enough(v_gpu, v_cpu, "pascal parity")
     cells = {name: confusions_agree(gpu.confusions[name],
                                     cpu.confusions[name],
                                     f"pascal parity {name}")
              for name in cpu.val_loaders}
+    close_enough(v_gpu, v_cpu, "pascal parity")
     gpu.close()
     cpu.close()
     print(f"pascal parity (fp32, {MAE_PARITY_STEPS} steps at a constant lr, "
@@ -4357,6 +4391,477 @@ def phase_test_protocol() -> dict:
     return path_launches
 
 
+# phase 24: the committed image fixtures and PIL's record of them
+FIXTURES = "tests/fixtures/images"
+DECODE_THREADS, DECODE_REPEATS = 16, 320
+# phase 25: a synthetic COCO image root of EMBED_IMAGES images (every
+# fourth a PNG: 180 JPEGs), embedded in batches of 8; enough images
+# that every COCO-20i class of phase 26 has examples
+IMAGES_DIR = "build/images_run"
+EMBED_IMAGES, EMBED_BATCH, EMBED_SIZE = 240, 8, 1024
+# the bf16 cache against the fp32 CPU encoder, relative L2 (bf16 keeps 8
+# bits of mantissa through 12 blocks)
+EMBED_BF16_REL_L2 = 5e-2
+# phase 26: COCO_vit.yaml for VIT_STEPS steps; the first step's loss of a
+# one-episode batch, card against CPU (fp32), relative
+VIT_YAML = "parameters/trainval/other/COCO_vit.yaml"
+VIT_STEPS, VIT_VAL, VIT_LOSS_RTOL = 4, 4, 2e-3
+ENCODER_BWD = ("relpos_global_bwd", "relpos_window_bwd")
+# phase 27: the four cross-domain test files, lam_b in the model block
+CROSS_SETS = {"test_kvasir": "kvasir", "test_weedmap": "weedmap",
+              "test_brain": "brain", "test_dram": "dram"}
+CROSS_MODEL = {"name": ["lam_b"], "image_embed_dim": [256]}
+
+
+def array_digest(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def phase_image_decode() -> None:
+    """Phase 24: the fixtures through the port's decoders against PIL's
+    record; the C JPEG decoder's time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from labelanything_tpu_torch.data import image_io, jpeg, native
+
+    t0 = time.perf_counter()
+    with open(f"{FIXTURES}/pil_decoded.json") as f:
+        record = json.load(f)
+    native.load_library()
+    t_build = time.perf_counter() - t0
+    plain_s = {}
+    for name, rec in sorted(record.items()):
+        with open(f"{FIXTURES}/{name}", "rb") as f:
+            data = f.read()
+        image = image_io.decode_image(data)
+        check(image.mode == rec["mode"] and list(image.array.shape)
+              == rec["shape"] and array_digest(image.array) == rec["sha256"],
+              f"decode {name}: {image.mode} {image.array.shape} differs "
+              f"from PIL's record")
+        check(array_digest(image_io.convert(image, target="RGB"))
+              == rec["rgb_sha256"], f"decode {name}: RGB differs from PIL's")
+        if name.endswith(".jpg"):
+            t = time.perf_counter()
+            plain = jpeg.decode_jpeg_plain(data)
+            plain_s[name] = time.perf_counter() - t
+            check(np.array_equal(plain, image.array),
+                  f"decode {name}: the numpy twin differs from the C decoder")
+    name = "coco_640x480_420.jpg"
+    with open(f"{FIXTURES}/{name}", "rb") as f:
+        data = f.read()
+    times = []
+    for _ in range(53):     # 3 warm-up calls, then 50 timed on the host
+        t = time.perf_counter()
+        jpeg.decode_jpeg(data)
+        times.append((time.perf_counter() - t) * 1e3)
+    one = statistics.median(times[3:])
+    with ThreadPoolExecutor(DECODE_THREADS) as pool:
+        list(pool.map(jpeg.decode_jpeg, [data] * DECODE_THREADS))
+        t = time.perf_counter()
+        list(pool.map(jpeg.decode_jpeg, [data] * DECODE_REPEATS))
+        rate = DECODE_REPEATS / (time.perf_counter() - t)
+    print(f"decode: {len(record)} fixtures equal PIL's record ("
+          f"{sum(n.endswith('.jpg') for n in record)} JPEGs also the numpy "
+          f"twin's bytes); the host library (decoder, unfilter, "
+          f"resample) built and loaded in {t_build:.2f} s; "
+          f"{name} (640 x 480, 4:2:0) {one:.3f} ms on one thread, "
+          f"{rate:.1f} images/s on {DECODE_THREADS} threads "
+          f"({os.cpu_count()} cores); the twin {plain_s[name]:.2f} s "
+          f"(the 427 x 640 one {plain_s['coco_portrait_427x640_420.jpg']:.2f}"
+          f" s)")
+    host_loops(data)
+    print(f"decode: phase 24 took {time.perf_counter() - t0:.1f} s")
+
+
+def host_loops(jpeg_data: bytes) -> None:
+    """Phase 24's second half: the pass from files' other two host loops,
+    C against the numpy twins on the same input, on one thread: the row
+    filters of the fixture's 480 x 640 pixels written as an RGB PNG
+    (adaptive filters, as the synthetic roots write them) and the resize
+    to 1024 px; then ``preprocess.load_one`` (decode, resize, pad) of that
+    JPEG and that PNG on one thread and on DECODE_THREADS threads, with
+    the host library and with the twins swapped in, which hold the GIL."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from labelanything_tpu_torch import preprocess
+    from labelanything_tpu_torch.data import jpeg, png, transforms
+
+    def host_ms(fn, n):
+        times = []
+        for _ in range(n + 1):          # a warm-up call, then n timed
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times[1:])
+
+    rgb = jpeg.decode_jpeg(jpeg_data)
+    h, w = rgb.shape[:2]
+    blob = png.encode_png(rgb)
+    raw = np.frombuffer(zlib.decompress(b"".join(
+        payload for kind, payload in png._chunks(blob) if kind == b"IDAT")),
+        np.uint8).reshape(h, 1 + w * 3)
+    check(np.array_equal(png.unfilter(raw, h, w, 3),
+                         png.unfilter_plain(raw, h, w, 3)),
+          "host loops: the PNG unfilter differs from its twin")
+    size = transforms.get_preprocess_shape(h, w, EMBED_SIZE)
+    check(np.array_equal(transforms.resize_uint8(rgb, size),
+                         transforms.resize_uint8_plain(rgb, size)),
+          "host loops: the resize differs from its twin")
+    ms = {"unfilter": (host_ms(lambda: png.unfilter(raw, h, w, 3), 20),
+                       host_ms(lambda: png.unfilter_plain(raw, h, w, 3), 3)),
+          "resize": (host_ms(lambda: transforms.resize_uint8(rgb, size), 20),
+                     host_ms(lambda: transforms.resize_uint8_plain(rgb, size),
+                             3))}
+    os.makedirs(IMAGES_DIR, exist_ok=True)
+    files = {"JPEG": f"{FIXTURES}/coco_640x480_420.jpg",
+             "PNG": f"{IMAGES_DIR}/host_loops.png"}
+    with open(files["PNG"], "wb") as f:
+        f.write(blob)
+    twins = ((png, "unfilter", png.unfilter_plain),
+             (transforms, "resize_uint8", transforms.resize_uint8_plain),
+             (preprocess, "resize_uint8", transforms.resize_uint8_plain))
+    rates = {}
+    for route in ("C", "numpy"):
+        with contextlib.ExitStack() as stack:
+            if route == "numpy":
+                for mod, attr, twin in twins:
+                    stack.enter_context(mock.patch.object(mod, attr, twin))
+            for kind, path in files.items():
+                one = host_ms(lambda: preprocess.load_one(
+                    (1, path), EMBED_SIZE, True), 10 if route == "C" else 3)
+                n = 4 * DECODE_THREADS if route == "C" else DECODE_THREADS
+                with ThreadPoolExecutor(DECODE_THREADS) as pool:
+                    t = time.perf_counter()
+                    list(pool.map(lambda i: preprocess.load_one(
+                        (i, path), EMBED_SIZE, True), range(n)))
+                    rate = n / (time.perf_counter() - t)
+                rates[route, kind] = (one, rate)
+    print(f"host loops (one thread, C / numpy twin): {w} x {h} RGB PNG's "
+          f"row filters {ms['unfilter'][0]:.3f} / {ms['unfilter'][1]:.2f} ms, "
+          f"the resize to {size[1]} x {size[0]} {ms['resize'][0]:.3f} / "
+          f"{ms['resize'][1]:.2f} ms; load_one to {EMBED_SIZE} px, ms on one "
+          f"thread and images/s on {DECODE_THREADS} threads: " + ", ".join(
+              f"{kind} {route} {one:.2f} ms, {rate:.1f}/s"
+              for (route, kind), (one, rate) in rates.items()))
+
+
+def image_root_paths() -> dict:
+    return {"instances_path": f"{IMAGES_DIR}/coco/instances.json",
+            "img_dir": f"{IMAGES_DIR}/coco/images"}
+
+
+def kernel_counts(prof, names: dict) -> dict:
+    """Launches in a profiler pass of the kernels whose names hold each
+    value of ``names``, by key."""
+    records = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {key: sum(e.count for e in records if sub in e.key)
+            for key, sub in names.items()}
+
+
+def phase_generate_embeddings() -> dict:
+    """Phase 25: ``cli generate_embeddings`` and ``cli generate_gt`` on a
+    synthetic COCO image root."""
+    import shutil
+
+    from labelanything_tpu_torch.data.image_io import read_rgb
+    from labelanything_tpu_torch.data.synthetic_coco import write_synthetic_coco
+    from labelanything_tpu_torch.preprocess import load_one, normalize
+    from labelanything_tpu_torch.utils.safetensors import load_file
+
+    t0 = time.perf_counter()
+    shutil.rmtree(IMAGES_DIR, ignore_errors=True)
+    paths = write_synthetic_coco(
+        f"{IMAGES_DIR}/coco", seed=SEED, num_images=EMBED_IMAGES,
+        image_sources=[f"{FIXTURES}/coco_640x480_420.jpg",
+                       f"{FIXTURES}/coco_portrait_427x640_420.jpg"],
+        embeddings=False)
+    check(paths == image_root_paths(), f"image root {paths}")
+    with open(paths["instances_path"]) as f:
+        images = json.load(f)["images"]
+    jpegs = sum(im["file_name"].endswith(".jpg") for im in images)
+    out = f"{IMAGES_DIR}/embeddings"
+    argv = ["generate_embeddings", "--directory", paths["img_dir"],
+            "--instances_path", paths["instances_path"], "--batch_size",
+            str(EMBED_BATCH), "--num_workers", "16", "--image_size",
+            str(EMBED_SIZE)]
+    names = {"relpos_global": fa.global_kernel(torch.bfloat16, (64, 64)),
+             "relpos_window": "window_tc_kernel"}
+
+    def body():
+        fa.reset_launches()
+        return cli_main(argv + ["--outfolder", out + "_profiled"],
+                        f"{IMAGES_DIR}/profiled.out")
+
+    prof, rc = time_kernels.profile_pass(body)
+    launches = dict(fa.LAUNCHES)
+    seen = kernel_counts(prof, names)
+    check(rc == 0, f"generate_embeddings returned {rc}")
+    batches = -(-EMBED_IMAGES // EMBED_BATCH)
+    expect_launches(launches, {k: v * batches for k, v in
+                               ENCODER_LAUNCHES.items()}, "generate_embeddings")
+    check(seen == {k: launches[k] for k in names},
+          f"generate_embeddings: the profiler saw {seen}, the counters "
+          f"{nonzero(launches)}")
+    t1 = time.perf_counter()
+    rc = cli_main(argv + ["--outfolder", out], f"{IMAGES_DIR}/timed.out")
+    t_cli = time.perf_counter() - t1
+    check(rc == 0, f"generate_embeddings returned {rc}")
+    with open(f"{IMAGES_DIR}/timed.out") as f:
+        rate = json.loads(f.read().strip().splitlines()[-1])[
+            "images_per_second"]
+    caches = sorted(os.listdir(out))
+    check(len(caches) == EMBED_IMAGES, f"{len(caches)} caches")
+
+    # one image's cache against the CPU port on the same decoded frame
+    first = images[0]
+    item = (first["id"], read_rgb(f"{paths['img_dir']}/{first['file_name']}"))
+    _, frame, hw = load_one(item, EMBED_SIZE, True)
+    vit = build_vit_b(project_last_hidden=True, image_size=EMBED_SIZE).eval()
+    init_weights(vit, SEED)
+    with torch.no_grad():
+        want = vit(normalize(torch.from_numpy(frame)[None],
+                             torch.tensor([hw])))[0]
+    got = load_file(f"{out}/{first['id']:012d}.safetensors")["embedding"]
+    got = got.permute(1, 2, 0)
+    rel = float((got - want).norm() / want.norm())
+    check(rel <= EMBED_BF16_REL_L2 and torch.isfinite(got).all(),
+          f"generate_embeddings: image {first['id']}'s cache against the "
+          f"CPU: relative L2 {rel}")
+
+    rc = cli_main(["generate_gt", "--dataset_name", "coco", "--anns_path",
+                   paths["instances_path"], "--outfolder", out],
+                  f"{IMAGES_DIR}/gt.out")
+    check(rc == 0, f"generate_gt returned {rc}")
+    with_gt = 0
+    for im in images:
+        f = load_file(f"{out}/{im['id']:012d}.safetensors")
+        check(sorted(f) == ["coco_gt", "embedding"] and tuple(
+            f["coco_gt"].shape) == (im["height"], im["width"]),
+            f"generate_gt: image {im['id']}: {sorted(f)}")
+        with_gt += int(f["coco_gt"].max() > 0)
+    check(with_gt == len(images), f"generate_gt: {with_gt} of "
+          f"{len(images)} maps hold a category")
+    print(f"generate_embeddings: {EMBED_IMAGES} images ({jpegs} JPEGs, "
+          f"{EMBED_IMAGES - jpegs} PNGs) decoded, resized and embedded by "
+          f"vit_b bf16 in batches of {EMBED_BATCH}: {rate:.2f} images/s "
+          f"(the CLI call {t_cli:.1f} s, the model's build included); "
+          f"launches {nonzero(launches)}, the profiler's {seen}; image "
+          f"{first['id']}'s cache against the CPU's fp32 encoder: relative "
+          f"L2 {rel:.3e}; generate_gt wrote {with_gt} maps")
+    print(f"generate_embeddings: phase 25 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def vit_config(paths: dict, steps: int = VIT_STEPS, val: int = VIT_VAL,
+               tuples=None) -> dict:
+    """COCO_vit.yaml as the port's reader gives it, on the image root:
+    ``checkpoint`` and ``use_sam_checkpoint`` out of the model block, one
+    epoch of ``steps`` steps, the N1K1 validation set alone at ``val``
+    episodes (``val`` 0: no validation set), 16 loader threads."""
+    from labelanything_tpu_torch.utils.config import load_yaml
+
+    cfg = load_yaml(VIT_YAML)
+    cfg.pop("other_grids")
+    p = cfg["parameters"]
+    for key in ("checkpoint", "use_sam_checkpoint"):
+        p["model"].pop(key)
+    datasets = p["dataset"]["datasets"]
+    for name in list(datasets):
+        if name.startswith("val_") and (name != "val_coco20i_N1K1"
+                                        or val == 0):
+            del datasets[name]
+            continue
+        datasets[name].update({k: [v] for k, v in paths.items()})
+        if name.startswith("val_"):
+            datasets[name]["val_num_samples"] = [val]
+    p["train_params"]["max_epochs"] = [1]
+    p["logger"]["log_frequency"] = [1]
+    p["dataloader"].update(num_steps=[steps], num_workers=[16])
+    if tuples is not None:
+        p["dataloader"]["possible_batch_example_nums"] = [tuples]
+    return cfg
+
+
+def phase_vit_run() -> dict:
+    """Phase 26: COCO_vit.yaml's lam_b trained through ``cli run`` on the
+    image root, the frozen encoder's kernels counted a step."""
+    from labelanything_tpu_torch.experiment import Run
+    from labelanything_tpu_torch.experiment import run as run_mod
+    from labelanything_tpu_torch.utils.config import expand_experiment
+
+    t0 = time.perf_counter()
+    paths = image_root_paths()
+    params = write_params(vit_config(paths), f"{IMAGES_DIR}/vit.yaml")
+    steps, make_step = [], run_mod.make_train_step
+
+    def counted_make(**kw):
+        step = make_step(**kw)
+
+        def counted(state, batch, gt, *args, **k):
+            before = dict(fa.LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, batch, gt, *args, **k)
+            torch.cuda.synchronize()
+            steps.append(dict(
+                images=int(np.prod(batch[BatchKeys.IMAGES].shape[:2])),
+                ms=(time.perf_counter() - t) * 1e3,
+                launches={k: fa.LAUNCHES[k] - before[k] for k in before
+                          if fa.LAUNCHES[k] != before[k]}))
+            return out
+        return counted
+
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(run_mod, "make_train_step", counted_make):
+        t1 = time.perf_counter()
+        rc = cli_main(["run", "--parameters", params, "--out-dir",
+                       f"{IMAGES_DIR}/vit_run"], f"{IMAGES_DIR}/vit_run.out")
+        t_cli = time.perf_counter() - t1
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(rc == 0, f"COCO_vit run: the CLI returned {rc}")
+    lines = read_jsonl(f"{IMAGES_DIR}/vit_run/metrics.jsonl")
+    losses = [r["train/loss"] for r in lines if "train/loss" in r]
+    check(len(steps) == VIT_STEPS and len(losses) == VIT_STEPS
+          and all(np.isfinite(losses)), f"COCO_vit run: {len(steps)} steps, "
+          f"losses {losses}")
+    for i, s in enumerate(steps):
+        check(s["launches"].get("relpos_global", 0) == 4
+              and s["launches"].get("relpos_window", 0) == 8
+              and not any(s["launches"].get(k, 0) for k in ENCODER_BWD),
+              f"COCO_vit run: step {i} launched {s['launches']}")
+    vals = {k: v for r in lines for k, v in r.items()
+            if k.startswith("validate/")}
+    check(vals and all(np.isfinite(list(vals.values()))),
+          f"COCO_vit run: validation {vals}")
+
+    # the first step of a one-episode batch, card against CPU
+    flat = expand_experiment(vit_config(paths, 1, 0, [[1, 1, 1]]))[0]
+    flat["train_params"].pop("scheduler")
+    gpu = Run().init(flat, f"{IMAGES_DIR}/vit_card", device="cuda")
+    cpu = Run().init(flat, f"{IMAGES_DIR}/vit_cpu", device="cpu")
+    cpu.state.model.load_state_dict(
+        {k: v.cpu() for k, v in gpu.state.model.state_dict().items()})
+    (l_gpu, _), (l_cpu, _) = recorded_steps(gpu), recorded_steps(cpu)
+    t2 = time.perf_counter()
+    gpu.train_epoch(0)
+    cpu.train_epoch(0)
+    t_parity = time.perf_counter() - t2
+    gpu.close()
+    cpu.close()
+    l_gpu, l_cpu = float(l_gpu[0]), float(l_cpu[0])
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    images = sum(s["images"] for s in steps)
+    step_ms = [round(s["ms"], 1) for s in steps]
+    print(f"COCO_vit run: lam_b fp32 at 1024 px, backbone frozen, "
+          f"{VIT_STEPS} steps of " + ", ".join(
+              str(s["images"]) for s in steps)
+          + f" images: step ms {step_ms}, {images / (sum(step_ms) / 1e3):.2f}"
+          f" images/s in the steps; the CLI call {t_cli:.1f} s; peak "
+          f"{peak:.2f} GiB; launches {nonzero(launches)} (per step K1 4, "
+          f"K2 8, no backward); losses " + ", ".join(
+              f"{x:.5f}" for x in losses) + f"; validation " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sorted(vals.items()))
+          + f"; the first step's loss card {l_gpu:.6f} / CPU {l_cpu:.6f} "
+          f"(relative {rel:.2e}, {t_parity:.1f} s)")
+    check(rel <= VIT_LOSS_RTOL, f"COCO_vit parity: loss {l_gpu} / {l_cpu}")
+    print(f"COCO_vit run: phase 26 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def cross_config(name: str, set_params: dict) -> dict:
+    """``parameters/test/<set>.yaml`` with ``lam_b`` in its model block and
+    the synthetic root's paths in place of the file's (weedmap.yaml names a
+    ``root``, which the WeedMap set does not take: ROADMAP C13)."""
+    from labelanything_tpu_torch.utils.config import load_yaml
+
+    cfg = load_yaml(f"parameters/test/{CROSS_SETS[name]}.yaml")
+    p = cfg["parameters"]
+    p["model"].update(CROSS_MODEL)
+    sets = p["dataset"]["datasets"]
+    sets[name] = {"image_size": sets[name]["image_size"],
+                  **{k: [v] for k, v in set_params.items()}}
+    return cfg
+
+
+def phase_crossdomain() -> dict:
+    """Phase 27: ``cli test`` on the four cross-domain layouts."""
+    from labelanything_tpu_torch.data.dataset import test_registry
+    from labelanything_tpu_torch.data.synthetic_crossdomain import (
+        write_crossdomain_roots)
+    from labelanything_tpu_torch.experiment import Run
+    from labelanything_tpu_torch.utils.config import expand_experiment
+
+    t0 = time.perf_counter()
+    roots = write_crossdomain_roots(
+        f"{IMAGES_DIR}/crossdomain",
+        jpegs=[f"{FIXTURES}/coco_640x480_420.jpg",
+               f"{FIXTURES}/coco_portrait_427x640_420.jpg"],
+        kvasir_pairs=[(f"{FIXTURES}/coco_640x480_420.jpg",
+                       f"{FIXTURES}/mask_640x480.jpg"),
+                      (f"{FIXTURES}/coco_portrait_427x640_420.jpg",
+                       f"{FIXTURES}/mask_427x640.jpg")],
+        brain_pairs=[(f"{FIXTURES}/{n}", f"{FIXTURES}/brain_mask_lzw.tif")
+                     for n in ("brain_raw.tif", "brain_tiff_lzw.tif",
+                               "brain_packbits.tif",
+                               "brain_tiff_adobe_deflate_pred.tif")],
+        seed=SEED)
+    launches, report = {}, []
+    for name in CROSS_SETS:
+        params = write_params(cross_config(name, roots[name]),
+                              f"{IMAGES_DIR}/{name}.yaml")
+        fa.reset_launches()
+        t1 = time.perf_counter()
+        rc = cli_main(["test", "--parameters", params, "--out-dir",
+                       f"{IMAGES_DIR}/{name}", "--batch-size", "8"],
+                      f"{IMAGES_DIR}/{name}.out")
+        dt = time.perf_counter() - t1
+        check(rc == 0, f"{name}: cli test returned {rc}")
+        got = dict(fa.LAUNCHES)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        lines = read_jsonl(f"{IMAGES_DIR}/{name}/metrics.jsonl")
+        metrics = {k: v for r in lines for k, v in r.items()
+                   if k.startswith("test/")}
+        check(len(metrics) >= 2 and all(np.isfinite(list(metrics.values()))),
+              f"{name}: metrics {metrics}")
+        check(got.get("relpos_global", 0) >= 8
+              and got.get("relpos_window", 0) >= 16,
+              f"{name}: launches {nonzero(got)}")
+        report.append(f"{name} {dt:.1f} s " + ", ".join(
+            f"{k.split('/')[-1]} {v:.4f}" for k, v in sorted(metrics.items()))
+            + f" (K1 {got['relpos_global']}, K2 {got['relpos_window']})")
+    print("crossdomain: cli test, lam_b fp32 at 480 px: " + "; ".join(report))
+
+    # Kvasir: the card against the CPU from the same weights
+    flat = expand_experiment(cross_config("test_kvasir",
+                                          roots["test_kvasir"]))[0]
+    gpu = Run().init(flat, f"{IMAGES_DIR}/kvasir_card", device="cuda")
+    cpu = Run().init(flat, f"{IMAGES_DIR}/kvasir_cpu", device="cpu")
+    cpu.state.model.load_state_dict(
+        {k: v.cpu() for k, v in gpu.state.model.state_dict().items()})
+    dataset = lambda: test_registry()["test_kvasir"](
+        **flat["dataset"]["datasets"]["test_kvasir"])
+    m_gpu = gpu._test_one(dataset(), "test_kvasir", 8)
+    m_cpu = cpu._test_one(dataset(), "test_kvasir", 8)
+    close_enough(m_gpu, m_cpu, "kvasir parity")
+    cell = confusions_agree(gpu.confusions["test_kvasir"],
+                            cpu.confusions["test_kvasir"], "kvasir parity")
+    gpu.close()
+    cpu.close()
+    print(f"crossdomain: kvasir fp32 card / CPU: " + ", ".join(
+        f"{k} {m_gpu[k]:.5f} / {m_cpu[k]:.5f}" for k in sorted(m_cpu))
+        + f"; confusion cells agreeing {cell:.6f}")
+    print(f"crossdomain: phase 27 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     card = phase_card()
     kind = torch.cuda.get_device_name(0)
@@ -4415,6 +4920,14 @@ def main() -> None:
     clock("22")
     paths.append(phase_test_protocol())
     clock("23")
+    phase_image_decode()
+    clock("24")
+    paths.append(phase_generate_embeddings())
+    clock("25")
+    paths.append(phase_vit_run())
+    clock("26")
+    paths.append(phase_crossdomain())
+    clock("27")
     print(f"profiler passes made again for a lost guard: "
           f"{time_kernels.guard_overruns}")
     summary = []

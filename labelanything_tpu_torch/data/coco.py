@@ -1,15 +1,18 @@
-"""COCO / LVIS episodic datasets on embedding caches (counterpart of
-``labelanything_tpu/data/coco.py``; reference: label_anything/data/coco.py).
+"""COCO / LVIS episodic datasets on embedding caches or image folders
+(counterpart of ``labelanything_tpu/data/coco.py``; reference:
+label_anything/data/coco.py).
 
 The JAX package's episode assembly in numpy, draw for draw: the example
 generators choose support images and classes, a prompt modality is sampled
 per annotation, annotations become padded prompt tensors, ground truths are
 rasterized and nearest-resized into the ``image_size`` input frame with
-IGNORE_INDEX fill. Two parts differ: polygons are filled by
-``data/rle.py`` (Pillow's fill in numpy) and the caches are read by
-``utils/safetensors.py``. Only the embeddings path is ported: without
-``emb_dir`` an episode raises (the images path needs an image decoder,
-ROADMAP A10).
+IGNORE_INDEX fill. Three parts differ: polygons are filled by
+``data/rle.py`` (Pillow's fill in numpy), the caches are read by
+``utils/safetensors.py`` and images (``img_dir`` without ``emb_dir``) are
+decoded by ``data/image_io.py``. An image episode carries its pixels as
+the JAX uint8 ingest does (``device_normalize=True`` there): resized and
+padded (S, S, 3) uint8 with ``DIMS`` and ``RESIZED_DIMS``, normalized on
+the card by the model (``ops/image_norm.py``).
 """
 
 from __future__ import annotations
@@ -25,11 +28,11 @@ from ..typing import AnnFileKeys, BatchKeys, BatchMetadataKeys, IGNORE_INDEX, Pr
 from ..utils.safetensors import load_file
 from .embeddings import embedding_from_file
 from .examples import build_example_generator
-from .schema import flags_merge
 from .rng import EpisodeRng
+from .schema import flags_merge
 from .transforms import (PromptsProcessor, get_preprocess_shape,
                          gt_to_input_frame as gt_to_input_frame_np,
-                         nearest_index_map)
+                         image_frames, nearest_index_map, resized_dims)
 
 
 def load_instances(path: str) -> dict:
@@ -246,16 +249,19 @@ class CocoLVISDataset:
         gt = f.get(f"{self.name}_gt") if self.load_gts else None
         return embedding, None if gt is None else gt.numpy()
 
-    def _load_image(self, img_data: dict):
-        raise NotImplementedError(
-            f"image {img_data.get('file_name', img_data[AnnFileKeys.ID])}: "
-            "the port's episode engine reads embedding caches only (set "
-            "emb_dir); the images path needs an image decoder, which the "
-            "port does not have yet (ROADMAP A10)")
+    def _image_path(self, img_data: dict) -> str:
+        """The image file of ``img_data`` (JAX ``_load_image`` opens it)."""
+        if self.img_dir is None:
+            raise FileNotFoundError(
+                "img_dir not provided (images are not downloaded)")
+        return f"{self.img_dir}/{img_data['file_name']}"
 
     def _get_images_or_embeddings(self, image_ids):
         if not self.load_embeddings:
-            self._load_image(self.images[image_ids[0]])
+            paths = [self._image_path(self.images[i]) for i in image_ids]
+            return (image_frames(paths, self.image_size,
+                                 self.custom_preprocess),
+                    BatchKeys.IMAGES, None)
         pairs = [self._load_safe(self.images[i]) for i in image_ids]
         embeddings, gts = zip(*pairs)
         if isinstance(embeddings[0], dict):
@@ -494,7 +500,13 @@ class CocoLVISDataset:
         flag_examples = flags_merge(flag_masks, flag_points, flag_bboxes)
         dims = np.asarray(img_sizes, np.int32)
 
+        extra = {}
+        if image_key == BatchKeys.IMAGES:
+            extra[BatchKeys.RESIZED_DIMS] = resized_dims(
+                img_sizes, self.image_size, self.custom_preprocess)
+
         return {
+            **extra,
             image_key: images,
             BatchKeys.PROMPT_MASKS: masks,
             BatchKeys.FLAG_MASKS: flag_masks,

@@ -2,8 +2,8 @@
 copy of ``labelanything_tpu/data/dataset.py`` (reference:
 label_anything/data/dataset.py). Of the datasets, COCO / LVIS, COCO-20i and
 PASCAL VOC / PASCAL-5i are ported; of the test protocol's, COCO / LVIS
-(``data/test.py``): the cross-domain sets raise until the port decodes
-their images (ROADMAP A10, A11).
+(``data/test.py``) and the four cross-domain sets
+(``data/crossdomain.py``).
 
 The collate pads the class and annotation axes to *bucketed* sizes (next
 multiple of ``annotation_bucket``), as the JAX package does, so both
@@ -30,18 +30,6 @@ def _round_up(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
-class _NotPorted:
-    """Registry entry of a dataset the port does not have yet."""
-
-    def __init__(self, name: str, missing: str):
-        self.name = name
-        self.missing = missing
-
-    def __call__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"dataset {self.name!r} is not ported yet: {self.missing}")
-
-
 def _registry():
     from .coco20i import Coco20iDataset
     from .pascal import Pascal5iDataset, PascalDataset
@@ -60,24 +48,21 @@ def _registry():
     }
 
 
-# the cross-domain sets (JAX data/crossdomain.py) read JPEG, TIFF and RGB
-# PNG images, which the port cannot decode yet
-_CROSSDOMAIN_MISSING = ("data/crossdomain.py reads JPEG / TIFF / RGB PNG "
-                        "images, and the port has no decoder for them "
-                        "(ROADMAP A10, A11)")
-
-
 def test_registry():
     """The test protocol's datasets by name (JAX ``Run.test``'s table;
     ``test_kvaris`` is the reference's typo, kept)."""
+    from .crossdomain import (BrainMriTestDataset, DramTestDataset,
+                              KvasirTestDataset, WeedMapTestDataset)
     from .test import CocoLVISTestDataset
 
     return {
         "test_coco": CocoLVISTestDataset,
         "test_lvis": CocoLVISTestDataset,
-        **{name: _NotPorted(name, _CROSSDOMAIN_MISSING)
-           for name in ("test_kvasir", "test_kvaris", "test_weedmap",
-                        "test_brain", "test_dram")},
+        "test_kvasir": KvasirTestDataset,
+        "test_kvaris": KvasirTestDataset,
+        "test_weedmap": WeedMapTestDataset,
+        "test_brain": BrainMriTestDataset,
+        "test_dram": DramTestDataset,
     }
 
 
@@ -197,6 +182,9 @@ class LabelAnythingDataset:
         batch[BatchKeys.FLAG_EXAMPLES] = pad_stack(
             BatchKeys.FLAG_EXAMPLES, (n_imgs, max_classes))
         batch[BatchKeys.DIMS] = np.stack([x[BatchKeys.DIMS] for x in items])
+        if BatchKeys.RESIZED_DIMS in items[0]:
+            batch[BatchKeys.RESIZED_DIMS] = np.stack(
+                [x[BatchKeys.RESIZED_DIMS] for x in items])
 
         image_key = (BatchKeys.EMBEDDINGS if BatchKeys.EMBEDDINGS in items[0]
                      else BatchKeys.IMAGES)

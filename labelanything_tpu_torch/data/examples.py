@@ -1,6 +1,7 @@
 """Episode example/class sampling, a copy of
 ``labelanything_tpu/data/examples.py`` (reference:
-label_anything/data/examples.py).
+label_anything/data/examples.py) but for one repair: a set of image names
+is drawn from in sorted order (:func:`uniform_sampling`).
 
 NumPy reimplementation of the example generators: for each query image, pick
 a class subset (power-law/uniform sized, inverse-frequency weighted) and find
@@ -33,6 +34,13 @@ def sample_uniform(n: int, rng: np.random.Generator) -> int:
 
 
 def uniform_sampling(elem_set, sampled_elems, rng: np.random.Generator):
+    # a set of ints iterates in an order fixed by the values (kept: it is
+    # JAX's); a set of names in the order of Python's string hash, which
+    # changes from process to process, so names are drawn sorted (ROADMAP
+    # C14)
+    if isinstance(elem_set, (set, frozenset)) and elem_set and not isinstance(
+            next(iter(elem_set)), (int, np.integer)):
+        elem_set = sorted(elem_set)
     to_sample_from = [c for c in elem_set if c not in sampled_elems]
     return to_sample_from[int(rng.integers(len(to_sample_from)))]
 

@@ -1,4 +1,4 @@
-"""PASCAL VOC episodic datasets on embedding caches, a copy of
+"""PASCAL VOC episodic datasets on embedding caches or images, a copy of
 ``labelanything_tpu/data/pascal.py`` (reference: label_anything/data/pascal.py
 and pascal5i.py).
 
@@ -7,9 +7,11 @@ binary mask, or a box or points taken from it. The ground truth is the
 segmentation PNG (255 on borders -> IGNORE_INDEX). The masks are read by
 ``data/png.py`` (the JAX package reads them with PIL) and the caches by
 ``utils/safetensors.py``; the draws are the JAX package's, draw for draw,
-from the same seed. Only the embeddings path is ported: without
-``emb_dir`` an episode raises (the images path needs a JPEG decoder,
-ROADMAP A10).
+from the same seed. Without ``emb_dir`` an episode reads
+``JPEGImages/<name>.jpg`` through ``data/image_io.py`` and carries the
+resized and padded uint8 pixels with ``RESIZED_DIMS``, as the COCO engine
+does; the JAX package normalizes them on the host instead, to the same
+values the model computes on the card.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from .examples import build_example_generator
 from .png import read_png
 from .rng import EpisodeRng
 from .schema import flags_merge
-from .transforms import PromptsProcessor, gt_to_input_frame
+from .transforms import (PromptsProcessor, gt_to_input_frame, image_frames,
+                         resized_dims)
 
 PASCAL_CATEGORIES = {
     i + 1: {"name": n} for i, n in enumerate([
@@ -161,13 +164,15 @@ class PascalDataset:
 
     def _get_images_or_embeddings(self, image_names):
         """(embeddings (N, h, w, C) or stage dict, key, the caches'
-        ``{name}_gt`` when ``load_gts``)."""
+        ``{name}_gt`` when ``load_gts``); without caches the images of
+        ``JPEGImages`` as resized and padded (N, S, S, 3) uint8, as the
+        COCO engine ships them."""
         if not self.load_embeddings:
-            raise NotImplementedError(
-                f"image {os.path.join(self.img_dir, image_names[0] + '.jpg')}"
-                ": the port's episode engine reads embedding caches only "
-                "(set emb_dir); the images path needs a JPEG decoder, which "
-                "the port does not have yet (ROADMAP A10)")
+            paths = [os.path.join(self.img_dir, n + ".jpg")
+                     for n in image_names]
+            return (image_frames(paths, self.image_size,
+                                 self.custom_preprocess),
+                    BatchKeys.IMAGES, None)
         embs, gts = [], []
         for n in image_names:
             f = load_file(f"{self.emb_dir}/{n}.safetensors")
@@ -267,7 +272,12 @@ class PascalDataset:
         gts = self.compute_ground_truths(image_names, cat_ids, memo)
         ground_truths = np.stack([self.gt_to_input_frame(g) for g in gts])
         flag_examples = flags_merge(flag_masks, flag_points, flag_bboxes)
+        extra = {}
+        if image_key == BatchKeys.IMAGES:
+            extra[BatchKeys.RESIZED_DIMS] = resized_dims(
+                img_sizes, self.image_size, self.custom_preprocess)
         return {
+            **extra,
             image_key: images,
             BatchKeys.PROMPT_MASKS: masks,
             BatchKeys.FLAG_MASKS: flag_masks,

@@ -69,6 +69,13 @@ class Lam(nn.Module):
         if BatchKeys.EMBEDDINGS in batch:
             x = batch[BatchKeys.EMBEDDINGS]
         elif BatchKeys.IMAGES in batch:
+            if self.image_encoder is None:
+                # the JAX Lam calls its absent encoder and fails with a
+                # TypeError (ROADMAP C13)
+                raise ValueError(
+                    "the batch carries images but the model has no image "
+                    "encoder (lam_no_vit reads embeddings): build lam_b, "
+                    "lam_l or lam_h, or give embeddings")
             x = maybe_normalize_images(
                 batch[BatchKeys.IMAGES], batch[BatchKeys.DIMS], self.image_size,
                 self.custom_preprocess, batch.get(BatchKeys.RESIZED_DIMS))

@@ -1,51 +1,58 @@
-"""Offline embedding extraction (counterpart of
+"""Offline embedding extraction and the dataset helpers (counterpart of
 ``labelanything_tpu/preprocess.py``; reference: label_anything/preprocess.py).
 
-:func:`preprocess_images_to_embeddings` streams decoded images through a
-SAM encoder (``build_vit_b`` / ``build_vit_l`` / ``build_vit_h``) on the
-card and writes one safetensors file per image, ``{"embedding": (C, H,
-W)}`` in fp32 named ``<id>.zfill(12).safetensors``: the cache the reference
-and the JAX package write, so caches are interchangeable
-(``data/embeddings.py`` reads them back channels-last). With
-``last_block_dir`` the last block's state (before the neck) goes to a
-second cache of the same layout, as the affinity configurations read it.
+:func:`preprocess_images_to_embeddings` streams images through a SAM
+encoder (``build_vit_b`` / ``build_vit_l`` / ``build_vit_h``) on the card
+and writes one safetensors file per image, ``{"embedding": (C, H, W)}`` in
+fp32 named ``<id>.zfill(12).safetensors``: the cache the reference and the
+JAX package write, so caches are interchangeable (``data/embeddings.py``
+reads them back channels-last). With ``last_block_dir`` the last block's
+state (before the neck) goes to a second cache of the same layout, as the
+affinity configurations read it.
 
-Images are (H, W, 3) uint8 arrays, already decoded: an iterable of
-``(image_id, array)`` (:func:`images_from_directory` reads a directory of
-``.npy`` files). They are resized on the host (``data/transforms.py``),
-padded bottom-right and sent to the card as uint8; there they are
-normalized, with the pad exactly zero. The next batch is queued on the card
-before this batch's output is fetched, and files are written by a thread
-pool.
+Images come as ``(image_id, source)`` pairs, the source a file path
+(JPEG, PNG or TIFF, decoded by ``data/image_io.py``) or an array already
+decoded: :func:`image_files` lists an image folder as the JAX package does
+(the instances file's images, else ``*.jpg`` then ``*.png``, sharded by
+``LA_SHARD_INDEX`` / ``LA_SHARD_COUNT``), :func:`images_from_directory`
+reads a folder of ``.npy`` arrays. Loader threads decode, convert to RGB,
+resize on the host (``data/transforms.py``, PIL's BILINEAR bit for bit)
+and pad bottom-right; the uint8 batch goes to the card, which normalizes
+it with the pad exactly zero. The next batch is queued on the card before
+this batch's output is fetched, and files are written by a thread pool.
 
-Not ported yet (ROADMAP A10): the Hugging Face ViT and CLIP extractors,
-the ground-truth, feature-pyramid, VOC and COCO-20i helpers, and reading
-encoded (JPEG, PNG) files.
+Also here: :func:`generate_ground_truths` (ground-truth maps into the
+caches), :func:`preprocess_voc` (VOC masks to class-index PNGs) and
+:func:`rename_coco20i_json`. Not ported yet (ROADMAP A10): the Hugging
+Face ViT, CLIP and feature-pyramid extractors.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import logging
 import os
 import pathlib
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator, Optional, Tuple, Union
+from typing import Callable, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .data.image_io import convert, open_image
+from .data.png import write_png
 from .data.transforms import (IMAGENET_MEAN, IMAGENET_STD, CustomResize,
-                              as_rgb, resize_uint8)
+                              PromptsProcessor, as_rgb, resize_uint8)
 from .models.build_encoder import ENCODERS
 from .models.build_lam import norm_dtype
-from .utils.safetensors import save_file
+from .utils.safetensors import load_file, save_file
 from .utils.weights import init_weights
 
 logger = logging.getLogger(__name__)
 
-Image = Tuple[str, np.ndarray]
+Image = Tuple[str, Union[str, np.ndarray]]
 
 
 def save_st(tensors: dict, path: str) -> None:
@@ -59,6 +66,30 @@ def cache_name(image_id) -> str:
     return f"{str(image_id).zfill(12)}.safetensors"
 
 
+def image_files(instances_path: Optional[str], directory: str
+                ) -> List[Tuple[Union[int, str], str]]:
+    """``(image_id, path)`` of the images to embed (the JAX
+    ``_image_files``): the instances file's images under ``directory``,
+    else ``*.jpg`` then ``*.png`` of the folder in name order, the id the
+    stem without leading zeros. With ``LA_SHARD_COUNT`` > 1 the worker
+    ``LA_SHARD_INDEX`` takes every ``LA_SHARD_COUNT``-th file."""
+    if instances_path:
+        with open(instances_path) as f:
+            instances = json.load(f)
+        files = [(img["id"], os.path.join(directory, img["file_name"]))
+                 for img in instances["images"]]
+    else:
+        paths = sorted(pathlib.Path(directory).glob("*.jpg")) + sorted(
+            pathlib.Path(directory).glob("*.png"))
+        files = [(p.stem.lstrip("0") or "0", str(p)) for p in paths]
+    shard = int(os.environ.get("LA_SHARD_INDEX", 0))
+    count = int(os.environ.get("LA_SHARD_COUNT", 1))
+    if count > 1:
+        files = files[shard::count]
+        logger.info("worker shard %d/%d: %d images", shard, count, len(files))
+    return files
+
+
 def images_from_directory(directory: str) -> Iterator[Image]:
     """``(image_id, array)`` of every ``.npy`` file of ``directory`` in
     name order, the id being the stem without leading zeros (as the JAX
@@ -68,9 +99,12 @@ def images_from_directory(directory: str) -> Iterator[Image]:
 
 
 def load_one(item: Image, image_size: int, custom_preprocess: bool):
-    """Resize on the host, pad bottom-right into (S, S, 3) uint8:
-    (image_id, padded, (h, w) after the resize)."""
+    """Decode a path (to RGB, as PIL's ``convert("RGB")``), resize on the
+    host, pad bottom-right into (S, S, 3) uint8: (image_id, padded, (h,
+    w) after the resize)."""
     image_id, image = item
+    if isinstance(image, (str, os.PathLike)):
+        image = convert(open_image(image), target="RGB")
     image = as_rgb(image)
     if custom_preprocess:
         image = CustomResize(image_size)(image)
@@ -194,7 +228,8 @@ def load_encoder_checkpoint(encoder: torch.nn.Module, checkpoint: str,
 
 
 def preprocess_images_to_embeddings(
-        encoder_name: str, images: Iterable[Image],
+        encoder_name: str, images: Optional[Iterable[Image]] = None,
+        directory: Optional[str] = None, instances_path: Optional[str] = None,
         checkpoint: Optional[str] = None, use_sam_checkpoint: bool = False,
         batch_size: int = 8, num_workers: int = 16,
         outfolder: str = "data/processed/embeddings",
@@ -203,11 +238,17 @@ def preprocess_images_to_embeddings(
         dtype: Union[str, torch.dtype] = torch.bfloat16,
         limit: Optional[int] = None,
         device: Union[str, torch.device] = "cuda", seed: int = 0) -> float:
-    """Embed ``images`` with the SAM encoder ``encoder_name`` ("vit_b",
+    """Embed ``images`` (``(image_id, path or array)`` pairs), or the
+    image files of ``directory`` (:func:`image_files` with
+    ``instances_path``), with the SAM encoder ``encoder_name`` ("vit_b",
     "vit_l", "vit_h") into ``outfolder`` (and ``last_block_dir``), on
     ``device`` (the first CUDA card unless named). The weights come from
     ``checkpoint``, else from ``seed``. Returns images a second
     (reference: preprocess.py:78-141,143-175)."""
+    if (images is None) == (directory is None):
+        raise ValueError("give images or directory, one of them")
+    if images is None:
+        images = image_files(instances_path, directory)
     device = torch.device(device)
     os.makedirs(outfolder, exist_ok=True)
     if last_block_dir:
@@ -244,3 +285,52 @@ def preprocess_images_to_embeddings(
                           batch_size=batch_size, num_workers=num_workers,
                           encode_fn=encode_fn, write_fn=write_fn,
                           device=device)
+
+
+def generate_ground_truths(dataset_name: str, anns_path: str, outfolder: str,
+                           custom_preprocess: bool = True) -> None:
+    """Add each image's ground-truth map, ``{dataset_name}_gt`` (H, W)
+    int64 of category ids (the largest id where instances overlap), to
+    its cache in ``outfolder`` (reference: preprocess.py:28-50)."""
+    with open(anns_path) as f:
+        anns = json.load(f)
+    pp = PromptsProcessor(custom_preprocess=custom_preprocess)
+    by_image: dict = {}
+    for ann in anns["annotations"]:
+        by_image.setdefault(ann["image_id"], []).append(ann)
+    for image in anns["images"]:
+        h, w = image["height"], image["width"]
+        gt = np.zeros((h, w), np.int64)
+        for ann in by_image.get(image["id"], []):
+            mask = pp.convert_mask(ann["segmentation"], h, w).astype(np.int64)
+            mask[mask == 1] = ann["category_id"]
+            gt = np.maximum(gt, mask)
+        path = os.path.join(outfolder, cache_name(image["id"]))
+        loaded = {k: v.numpy() for k, v in load_file(path).items()}
+        loaded[f"{dataset_name}_gt"] = gt
+        save_st(loaded, path)
+
+
+def preprocess_voc(input_folder: str) -> None:
+    """VOC's palette masks (``SegmentationClass/*.png``) to class-index
+    masks in ``<input_folder>Processed`` beside it: each file's indices
+    (a grayscale mask's levels) written as an 8-bit grayscale PNG
+    (reference: data/voc12.py preprocess_voc)."""
+    folder = pathlib.Path(input_folder)
+    out_dir = folder.parent / (folder.name + "Processed")
+    out_dir.mkdir(exist_ok=True)
+    for path in sorted(folder.glob("*.png")):
+        arr = convert(open_image(path), target="P")
+        write_png(str(out_dir / path.name), arr.astype(np.uint8))
+    logger.info("VOC masks processed into %s", out_dir)
+
+
+def rename_coco20i_json(instances_path: str) -> None:
+    """Strip COCO 2014's ``COCO_train2014_`` style prefix from every image's
+    ``file_name``, in place (reference: preprocess.py:325-336)."""
+    with open(instances_path) as f:
+        anns = json.load(f)
+    for image in anns["images"]:
+        image["file_name"] = image["file_name"].split("_")[-1]
+    with open(instances_path, "w") as f:
+        json.dump(anns, f)

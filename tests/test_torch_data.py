@@ -294,7 +294,7 @@ def test_engine_process_mode_matches_thread_mode(coco_root):
 def test_pascal_names_raise_until_ported():
     """The Pascal names resolve to the ported datasets (which raise, naming
     ``data_dir``, without a VOC root); the test protocol's cross-domain
-    names raise until the port decodes their images."""
+    names resolve to the ported cross-domain sets."""
     assert tds.resolve_dataset("val_pascal5i_N1K1").__name__ == "Pascal5iDataset"
     assert tds.resolve_dataset("pascal").__name__ == "PascalDataset"
     with pytest.raises(ValueError, match="data_dir"):
@@ -302,7 +302,9 @@ def test_pascal_names_raise_until_ported():
     assert tds.resolve_dataset("val_coco20i_N2K1").__name__ == "Coco20iDataset"
     tests = tds.test_registry()
     assert tests["test_coco"].__name__ == "CocoLVISTestDataset"
-    for name in ("test_kvasir", "test_kvaris", "test_weedmap", "test_brain",
-                 "test_dram"):
-        with pytest.raises(NotImplementedError, match="decoder"):
-            tests[name]()
+    for name, cls in (("test_kvasir", "KvasirTestDataset"),
+                      ("test_kvaris", "KvasirTestDataset"),
+                      ("test_weedmap", "WeedMapTestDataset"),
+                      ("test_brain", "BrainMriTestDataset"),
+                      ("test_dram", "DramTestDataset")):
+        assert tests[name].__name__ == cls

@@ -399,9 +399,9 @@ def test_build_without_nvcc_raises_clear_error(monkeypatch, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port and its slice modules load neither JAX, flax, PIL,
-    safetensors, PyYAML, click nor the JAX package itself, so the port runs
-    where none of them is installed."""
+    """The port, its slice modules and ``chip_smoke.py`` load neither JAX,
+    flax, PIL, safetensors, PyYAML, click nor the JAX package itself, so
+    the port runs where none of them is installed."""
     modules = ["labelanything_tpu_torch", "labelanything_tpu_torch.api",
                "labelanything_tpu_torch.data.synthetic",
                "labelanything_tpu_torch.models.registry",
@@ -453,6 +453,12 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.data.pascal",
                "labelanything_tpu_torch.data.synthetic_voc",
                "labelanything_tpu_torch.data.test",
+               # the images path: decoders, the cross-domain sets
+               "labelanything_tpu_torch.data.jpeg",
+               "labelanything_tpu_torch.data.tiff",
+               "labelanything_tpu_torch.data.image_io",
+               "labelanything_tpu_torch.data.crossdomain",
+               "labelanything_tpu_torch.data.synthetic_crossdomain",
                # chip_smoke.py's golden replays
                "tests.torch_golden_replay"]
     code = ("import sys\n"
@@ -472,18 +478,18 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    for root, _, files in os.walk(os.path.join(REPO, "labelanything_tpu_torch")):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(root, name)) as fh:
-                    text = fh.read()
-                for line in text.splitlines():
-                    words = line.split()
-                    if words[:1] in (["import"], ["from"]):
-                        assert words[1].split(".")[0] not in (
-                            "jax", "flax", "optax", "PIL", "safetensors",
-                            "yaml", "click", "labelanything_tpu"), (name,
-                                                                    line)
+    sources = [os.path.join(root, name) for root, _, files in os.walk(
+        os.path.join(REPO, "labelanything_tpu_torch")) for name in files
+        if name.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
+    for path in sources:
+        with open(path) as fh:
+            text = fh.read()
+        for line in text.splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert words[1].split(".")[0] not in (
+                    "jax", "flax", "optax", "PIL", "safetensors", "yaml",
+                    "click", "labelanything_tpu"), (path, line)
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -6,19 +6,27 @@ embedding caches the port writes; the engine on
 ``parameters/trainval/pascal/mae.yaml``; and the fault of
 ``parameters/validation/Pascal/*.yaml`` (no ``data_dir``) on both sides."""
 
+import json
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 from PIL import Image
 
 from labelanything_tpu.data import dataset as jds
+from labelanything_tpu.data import examples as jexamples
 from labelanything_tpu.data import loader as jloader
 from labelanything_tpu.data import pascal as jpascal
 from labelanything_tpu_torch.data import dataset as tds
+from labelanything_tpu_torch.data import examples as texamples
 from labelanything_tpu_torch.data import loader as tloader
 from labelanything_tpu_torch.data import pascal as tpascal
 from labelanything_tpu_torch.data.synthetic_voc import write_synthetic_voc
+from labelanything_tpu_torch.data.transforms import (get_preprocess_shape,
+                                                    normalize_padded)
 from labelanything_tpu_torch.typing import BatchMetadataKeys as K
 from labelanything_tpu_torch.utils.config import expand_experiment, load_yaml
 from labelanything_tpu_torch.utils.safetensors import load_file, save_file
@@ -27,6 +35,19 @@ from tests.test_torch_data import (JaxSamplerEpisodeTypesWhole,
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 IMAGE_SIZE = 64
+
+
+def sorted_name_draws_in_jax(monkeypatch):
+    """C14's repair put on the JAX side: its example generator draws an
+    image name from a set in the order of Python's string hash, the port
+    from the names sorted."""
+    monkeypatch.setattr(jexamples, "uniform_sampling",
+                        texamples.uniform_sampling)
+
+
+@pytest.fixture(autouse=True)
+def _c14(monkeypatch):
+    sorted_name_draws_in_jax(monkeypatch)
 
 
 @pytest.fixture(scope="module")
@@ -126,7 +147,10 @@ def test_pascal_dataset_episodes_match_jax(voc_root, split):
 
 def test_pascal_caches_and_gt_match_jax(voc_root, tmp_path):
     """The caches' ``embedding`` and ``{name}_gt`` as the JAX package reads
-    them (``safetensors.numpy``); the images path raises in the port."""
+    them (``safetensors.numpy``); without caches both read ``JPEGImages``
+    (written here by PIL at the masks' sizes): the port's uint8 frames,
+    normalized as the model normalizes them, equal the JAX package's
+    host-normalized ones bit for bit."""
     jset, tset = _pair(voc_root, "pascal", dict(split="val"),
                        dict(load_gts=True))
     tp, jp = tset.datasets["pascal"], jset.datasets["pascal"]
@@ -146,9 +170,20 @@ def test_pascal_caches_and_gt_match_jax(voc_root, tmp_path):
     np.testing.assert_array_equal(emb, jemb)
     for g, jg in zip(gts, jgts):
         np.testing.assert_array_equal(g, jg)
-    tp.load_embeddings = False
-    with pytest.raises(NotImplementedError, match="JPEG decoder"):
-        tp._get_images_or_embeddings(names)
+    rng = np.random.default_rng(0)
+    os.makedirs(f"{voc_root['data_dir']}/JPEGImages", exist_ok=True)
+    for n in names:
+        h, w = tp._get_seg(n).shape
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            f"{voc_root['data_dir']}/JPEGImages/{n}.jpg", quality=80)
+    tp.load_embeddings = jp.load_embeddings = False
+    images, key, _ = tp._get_images_or_embeddings(names)
+    jimages, jkey, _ = jp._get_images_or_embeddings(names)
+    assert key == jkey == "images" and images.dtype == np.uint8
+    for frame, jframe, n in zip(images, jimages, names):
+        nh, nw = get_preprocess_shape(*tp._get_seg(n).shape, tp.image_size)
+        np.testing.assert_array_equal(
+            normalize_padded(frame[:nh, :nw], tp.image_size), jframe)
 
 
 def _mae_engine(voc_root):
@@ -214,3 +249,36 @@ def test_validation_pascal_configs_raise_on_both_sides():
 def test_pascal_categories_and_folds_match_jax():
     assert tpascal.PASCAL_CATEGORIES == jpascal.PASCAL_CATEGORIES
     assert tpascal.PASCAL_IGNORE == jpascal.PASCAL_IGNORE
+
+
+C14_DRAWS = """
+import json
+import numpy as np
+from labelanything_tpu.data.examples import uniform_sampling as jax_draw
+from labelanything_tpu_torch.data.examples import uniform_sampling as port_draw
+names = {f"2008_{i:06d}" for i in range(64)}
+ids = {3 * i for i in range(64)}
+print(json.dumps([[draw(pool, ["2008_000007", 9], np.random.default_rng(s))
+                   for s in range(8)]
+                  for draw in (jax_draw, port_draw) for pool in (names, ids)]))
+"""
+
+
+def test_c14_name_draws_follow_the_hash_seed_in_jax_only():
+    """ROADMAP C14: a draw from a set of VOC image names follows Python's
+    string hash seed in the JAX package, so two processes draw other
+    PASCAL training episodes from one seed; the port draws the same names
+    under any hash seed. A draw from a set of ints (COCO's ids) is the
+    same in both packages and under any hash seed."""
+    runs = []
+    for hash_seed in ("1", "2"):
+        env = dict(os.environ, PYTHONHASHSEED=hash_seed, JAX_PLATFORMS="cpu",
+                   PYTHONPATH=str(REPO))
+        out = subprocess.run([sys.executable, "-c", C14_DRAWS], env=env,
+                             capture_output=True, text=True, check=True)
+        runs.append(json.loads(out.stdout))
+    (jax_names, jax_ids, port_names, port_ids) = zip(*runs)
+    assert jax_names[0] != jax_names[1]
+    assert port_names[0] == port_names[1]
+    assert jax_ids[0] == jax_ids[1] == port_ids[0] == port_ids[1]
+    assert "2008_000007" not in port_names[0] and 9 not in port_ids[0]

@@ -3,8 +3,10 @@ CPU: 8-bit grayscale and palette files whose rows take each of the five
 filters (written by a scalar encoder in this file, one byte at a time as
 the PNG standard states the filters) and files that PIL writes, at odd
 widths and several IDAT chunks, read bit for bit as
-``np.asarray(Image.open(path))`` reads them; the writer's files read back
-and read by PIL alike; other kinds of PNG refused."""
+``np.asarray(Image.open(path))`` reads them; colour, grey + alpha and
+16-bit files, plain and Adam7-interlaced, likewise; the C unfilter
+against its numpy twin; the writer's files read back and read by PIL
+alike; the kinds the reader refuses."""
 
 import io
 import struct
@@ -158,27 +160,40 @@ def test_adaptive_writer_takes_every_filter():
     assert len(set(kinds.tolist())) >= 2
 
 
+def _with_header(image: np.ndarray, depth: int, colour: int,
+                 interlace: int = 0) -> bytes:
+    """The writer's file of ``image`` with IHDR's bit depth, colour type
+    and interlace bytes set, its CRC redone."""
+    data = bytearray(png.encode_png(image))
+    data[24], data[25], data[28] = depth, colour, interlace
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
+    return bytes(data)
+
+
 @pytest.mark.parametrize("mode,match", [
     ("RGB", "colour type 2"), ("RGBA", "colour type 6"), ("LA", "colour type 4"),
     ("1", "bit depth 1"), ("I;16", "bit depth 16"), ("interlaced", "interlaced"),
     ("crc", "CRC"), ("signature", "signature")])
 def test_reader_refuses_other_kinds(mode, match):
+    """What the reader refuses: bit depths below 8 and the combinations
+    the standard does not allow (RGB, RGBA and grey + alpha below 8 bits,
+    16-bit palette images), an interlace method other than none and
+    Adam7, a bad CRC or signature."""
     rng = np.random.default_rng(0)
     image = rng.integers(0, 256, (9, 11), dtype=np.uint8)
     buf = io.BytesIO()
-    if mode in ("RGB", "RGBA", "LA"):
-        Image.fromarray(np.stack([image] * len(mode), -1), mode=mode).save(
-            buf, format="PNG")
+    if mode == "RGB":
+        buf.write(_with_header(image, 4, 2))
+    elif mode == "RGBA":
+        buf.write(_with_header(image, 2, 6))
+    elif mode == "LA":
+        buf.write(_with_header(image, 1, 4))
     elif mode == "1":
         Image.fromarray(image > 127).save(buf, format="PNG")
     elif mode == "I;16":
-        Image.fromarray(image.astype(np.uint16) * 257).save(buf, format="PNG")
+        buf.write(_with_header(image, 16, 3))
     elif mode == "interlaced":
-        data = bytearray(png.encode_png(image))
-        # IHDR's interlace byte (offset 8 + 8 + 12), its CRC redone
-        data[28] = 1
-        data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
-        buf.write(bytes(data))
+        buf.write(_with_header(image, 8, 0, interlace=2))
     elif mode == "crc":
         data = bytearray(png.encode_png(image))
         data[20] ^= 1
@@ -187,6 +202,71 @@ def test_reader_refuses_other_kinds(mode, match):
         buf.write(b"GIF89a" + png.encode_png(image)[6:])
     with pytest.raises(ValueError, match=match):
         png.decode_png(buf.getvalue())
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBA", "LA", "I;16"])
+def test_reader_matches_pil_on_colour_files(mode, tmp_path):
+    """Colour, grey + alpha and 16-bit grey files that PIL writes, read
+    as ``np.asarray(Image.open(path))`` reads them."""
+    rng = np.random.default_rng(len(mode))
+    for i, (h, w) in enumerate(SHAPES + [(120, 97)]):
+        if mode == "I;16":
+            image = rng.integers(0, 65536, (h, w)).astype(np.uint16)
+        else:
+            image = _image(rng, h, w * len(mode), "noise" if i % 2
+                           else "mask").reshape(h, w, len(mode))
+        path = tmp_path / f"{i}.png"
+        Image.fromarray(image).save(path)
+        with Image.open(path) as ref:
+            expected = np.asarray(ref)
+        got = png.read_png(str(path))
+        assert got.dtype == expected.dtype
+        np.testing.assert_array_equal(got, expected)
+
+
+@pytest.mark.parametrize("colour,depth", [(0, 8), (0, 16), (2, 8), (2, 16),
+                                          (3, 8), (4, 8), (4, 16), (6, 8),
+                                          (6, 16)])
+@pytest.mark.parametrize("interlace", [False, True])
+def test_reader_matches_pil_on_every_layout(colour, depth, interlace):
+    """Every colour type at 8 and 16 bits, plain and Adam7, each row under
+    a seeded filter (``tests/make_image_fixtures.png_bytes``), at sizes
+    where some Adam7 passes are empty."""
+    from tests.make_image_fixtures import png_bytes
+
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[colour]
+    rng = np.random.default_rng([colour, depth, interlace])
+    for h, w in [(1, 1), (3, 2), (9, 13), (17, 8)]:
+        top = 256 if depth == 8 else 65536
+        image = rng.integers(0, 21 if colour == 3 else top,
+                             (h, w, channels)).astype(
+            np.uint8 if depth == 8 else np.uint16)
+        data = png_bytes(image[..., 0] if channels == 1 else image, colour,
+                         depth=depth, interlace=interlace, seed=h * w,
+                         palette=(np.arange(63).reshape(21, 3) * 4
+                                  if colour == 3 else None))
+        with Image.open(io.BytesIO(data)) as ref:
+            expected = np.asarray(ref)
+        got = png.decode_png(data)[0]
+        assert got.dtype == expected.dtype
+        np.testing.assert_array_equal(got, expected)
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4, 6, 8])
+def test_c_unfilter_matches_the_numpy_twin(bpp):
+    """``unfilter`` (C) against ``unfilter_plain`` (the numpy wavefront)
+    on random scanlines, every row a random filter, at widths of one pixel
+    and more; a filter byte past 4 is refused by both."""
+    rng = np.random.default_rng(bpp)
+    for h, w in [(1, 1), (3, 1), (1, 9), (17, 23), (40, 64)]:
+        raw = rng.integers(0, 256, (h, 1 + w * bpp), dtype=np.uint8)
+        raw[:, 0] = rng.integers(0, 5, h)
+        np.testing.assert_array_equal(png.unfilter(raw, h, w, bpp),
+                                      png.unfilter_plain(raw, h, w, bpp))
+    raw[-1, 0] = 5
+    for fn in (png.unfilter, png.unfilter_plain):
+        with pytest.raises(ValueError, match="0 to 4"):
+            fn(raw, h, w, bpp)
 
 
 def test_writer_refuses_bad_input():

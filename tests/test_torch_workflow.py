@@ -141,8 +141,9 @@ TOY_VIT = dict(img_size=64, patch_size=16, embed_dim=128, depth=2,
 
 def test_preprocess_matches_jax(tmp_path, monkeypatch):
     """A toy SAM encoder (64 px) with the same reference-layout checkpoint in
-    both packages: the JAX extractor reads PNG files, the port the arrays
-    they decode to; the embedding and last-block caches agree (fp32)."""
+    both packages, both reading the same folder of PNG files: the embedding
+    and last-block caches agree (fp32), the downscaled image's too, since
+    the port's resize is PIL's bit for bit."""
     monkeypatch.setitem(jregistry, "vit_b", lambda project_last_hidden, dtype,
                         image_size: JViT(use_rel_pos=True, dtype=dtype,
                                          project_last_hidden=True, **TOY_VIT))
@@ -169,20 +170,18 @@ def test_preprocess_matches_jax(tmp_path, monkeypatch):
         num_workers=2, outfolder=dirs["jax"][0], last_block_dir=dirs["jax"][1],
         image_size=64, dtype=jnp.float32)
     rate = preprocess.preprocess_images_to_embeddings(
-        "vit_b", decoded, checkpoint=ckpt, batch_size=2, num_workers=2,
+        "vit_b", directory=str(image_dir), checkpoint=ckpt, batch_size=2,
+        num_workers=2,
         outfolder=dirs["port"][0], last_block_dir=dirs["port"][1],
         image_size=64, dtype="float32", device="cpu")
     assert rate > 0
     names = sorted(os.listdir(dirs["jax"][0]))
     assert names == sorted(os.listdir(dirs["port"][0])) == [
         f"{i:012d}.safetensors" for i in range(1, 6)]
-    # the 100 x 80 image is downscaled, where the port's pixels are within
-    # one uint8 level of PIL's (0.017 after the normalization), not equal:
-    # its caches are held to 5e-2
+    # the 100 x 80 image is downscaled: the port's pixels are PIL's
     image = decoded[2][1]
-    gap = np.abs(CustomResize(64)(image).astype(int) - np.asarray(
-        JCustomResize(64)(Image.fromarray(image))).astype(int))
-    assert gap.max() == 1
+    np.testing.assert_array_equal(CustomResize(64)(image), np.asarray(
+        JCustomResize(64)(Image.fromarray(image))))
     for k, shape in ((0, (32, 4, 4)), (1, (128, 4, 4))):
         for i, name in enumerate(names):
             ours = st.load_file(os.path.join(dirs["port"][k], name))
@@ -190,8 +189,7 @@ def test_preprocess_matches_jax(tmp_path, monkeypatch):
             assert list(ours) == list(ref) == ["embedding"]
             assert tuple(ours["embedding"].shape) == shape
             np.testing.assert_allclose(
-                ours["embedding"].numpy(), ref["embedding"].numpy(),
-                **(TOL if i != 2 else dict(rtol=0, atol=5e-2)))
+                ours["embedding"].numpy(), ref["embedding"].numpy(), **TOL)
 
 
 def test_images_from_directory(tmp_path):
