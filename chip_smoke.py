@@ -7,9 +7,11 @@ full-size golden fixtures, training on precomputed embeddings (the flagship
 ``lam_no_vit`` and the affinity model), the embedding-cache workflow
 (embed, train with a checkpoint and a resume, save, reload, serve), the
 training entry point (``mae.yaml`` through the CLI, ``Run`` and the
-episode engine on a synthetic COCO root), and the evaluation protocols
+episode engine on a synthetic COCO root), the evaluation protocols
 (``validate --checkpoint``'s fold x rerun protocol on that run, PASCAL-5i
-on a synthetic VOC root, the COCO test protocol).
+on a synthetic VOC root, the COCO test protocol), the images path, and
+the ResNet / VGG baselines (PANet, PPNet, DENet, BAM, HDMNet) through
+``cli validate``.
 
 Run from the repository root, with no arguments:
 
@@ -298,7 +300,19 @@ reports):
    palette PNG labels) under ``parameters/test/*.yaml`` with ``lam_b`` in
    the model block (the files' ``lam_no_vit`` cannot read images, ROADMAP
    C13), fp32: finite metrics, K1 and K2 launched; Kvasir's card against
-   CPU within MAE_METRIC_ATOL and ``confusions_agree``.
+   CPU within MAE_METRIC_ATOL and ``confusions_agree``;
+28. the baselines (``phase_baselines``): ``cli validate`` of
+   ``validation/COCO/bam_1shot.yaml`` (N1K1), the N5K1 set of
+   ``hdmnet_N5-10-15-20.yaml``, ``panet.yaml`` (N1K1, N2K1) on phase 25's
+   image root, ``validation/Pascal/ppnet.yaml`` and ``denet.yaml`` with a
+   ``data_dir`` (C12) on a VOC root of BASELINE_VOC_IMAGES JPEGs, at the
+   files' full width, fp32, seeded weights, 1 rerun, BASELINE_VAL episodes
+   a set: finite metrics, episodes/s, the loader-wait share, peak memory,
+   a profiler pass over a set (busy share), no kernel launch; one batch each, card against CPU
+   (``baseline_logits_agree``: rtol 1e-3 / atol 5e-4 on the flagged
+   classes, argmax above BASELINE_ARGMAX_AGREE); the golden fixtures
+   ``ppnet_full``, ``denet_2way_2shot``, ``bam_1shot`` and
+   ``hdmnet_1shot`` on the card at their cases' tolerances.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. The models are the repo's LAM
@@ -4568,17 +4582,12 @@ def phase_generate_embeddings() -> dict:
     import shutil
 
     from labelanything_tpu_torch.data.image_io import read_rgb
-    from labelanything_tpu_torch.data.synthetic_coco import write_synthetic_coco
     from labelanything_tpu_torch.preprocess import load_one, normalize
     from labelanything_tpu_torch.utils.safetensors import load_file
 
     t0 = time.perf_counter()
     shutil.rmtree(IMAGES_DIR, ignore_errors=True)
-    paths = write_synthetic_coco(
-        f"{IMAGES_DIR}/coco", seed=SEED, num_images=EMBED_IMAGES,
-        image_sources=[f"{FIXTURES}/coco_640x480_420.jpg",
-                       f"{FIXTURES}/coco_portrait_427x640_420.jpg"],
-        embeddings=False)
+    paths = write_image_root()
     check(paths == image_root_paths(), f"image root {paths}")
     with open(paths["instances_path"]) as f:
         images = json.load(f)["images"]
@@ -4862,6 +4871,191 @@ def phase_crossdomain() -> dict:
     return launches
 
 
+# phase 28: the ResNet / VGG baselines through ``cli validate`` at the full
+# width of their files (BAM, HDMNet: ResNet-50 at 473 px; PPNet, DENet:
+# ResNet-50 at 417; PANet: VGG16 at 417), seeded weights, fp32 (the files
+# set no dtype): (model, file, the sets kept, the root)
+BASELINE_DIR = "build/baselines_run"
+BASELINE_VAL = 16                 # episodes a set (the files': 1000)
+BASELINE_VOC_IMAGES = 200
+BASELINE_FILES = (
+    ("bam", "parameters/validation/COCO/bam_1shot.yaml",
+     ("val_coco20i_N1K1",), "coco"),
+    ("hdmnet", "parameters/validation/COCO/hdmnet_N5-10-15-20.yaml",
+     ("val_coco20i_N5K1",), "coco"),
+    ("panet", "parameters/validation/COCO/panet.yaml",
+     ("val_coco20i_N1K1", "val_coco20i_N2K1"), "coco"),
+    # the Pascal files give no data_dir (ROADMAP C12): the VOC root's
+    ("ppnet", "parameters/validation/Pascal/ppnet.yaml",
+     ("val_pascal5i_N2K1",), "voc"),
+    ("denet", "parameters/validation/Pascal/denet.yaml",
+     ("val_pascal5i_N1K1", "val_pascal5i_N2K1"), "voc"),
+)
+BASELINE_ARGMAX_AGREE = 0.999
+
+
+def write_image_root() -> dict:
+    """Phase 25's synthetic COCO image root (EMBED_IMAGES images: the
+    committed COCO-sized JPEGs copied, every fourth an RGB PNG)."""
+    from labelanything_tpu_torch.data.synthetic_coco import write_synthetic_coco
+
+    return write_synthetic_coco(
+        f"{IMAGES_DIR}/coco", seed=SEED, num_images=EMBED_IMAGES,
+        image_sources=[f"{FIXTURES}/coco_640x480_420.jpg",
+                       f"{FIXTURES}/coco_portrait_427x640_420.jpg"],
+        embeddings=False)
+
+
+def baseline_logits_agree(gpu: torch.Tensor, cpu: torch.Tensor,
+                          what: str) -> tuple:
+    """The card's fp32 logits against the CPU's: the same non-finite
+    (unflagged) classes, the finite ones within rtol 1e-3 / atol 5e-4, the
+    argmax on more than BASELINE_ARGMAX_AGREE of the pixels. Returns (max
+    |card - cpu|, the logits' scale, the argmax agreement)."""
+    g, c = gpu.float().cpu().numpy(), cpu.float().numpy()
+    finite = np.isfinite(c)
+    check(np.array_equal(np.isfinite(g), finite) and finite.any(),
+          f"{what}: the non-finite logits differ")
+    diff = float(np.abs(g[finite] - c[finite]).max())
+    check(np.allclose(g[finite], c[finite], rtol=1e-3, atol=5e-4),
+          f"{what}: logits card / cpu differ by up to {diff:.3g}")
+    agree = float((g.argmax(1) == c.argmax(1)).mean())
+    check(agree > BASELINE_ARGMAX_AGREE, f"{what}: argmax agrees on {agree}")
+    return diff, float(np.abs(c[finite]).max()), agree
+
+
+def phase_baselines() -> dict:
+    """Phase 28: the five baselines through ``cli validate`` on the card, a
+    profiler pass over a set, one batch each card against CPU, and the four
+    golden fixtures of the original baselines on the card."""
+    import copy
+    import shutil
+
+    from labelanything_tpu_torch.data.synthetic_voc import write_synthetic_voc
+    from labelanything_tpu_torch.experiment import Run
+    from labelanything_tpu_torch.experiment import run as run_mod
+    from labelanything_tpu_torch.train.substitutor import divide_query_examples
+    from labelanything_tpu_torch.utils.config import expand_experiment
+    from tests.torch_golden_replay import BASELINE_CASES, replay_baseline
+
+    t0 = time.perf_counter()
+    shutil.rmtree(BASELINE_DIR, ignore_errors=True)
+    coco = image_root_paths()
+    if not os.path.exists(coco["instances_path"]):
+        coco = write_image_root()
+    voc = write_synthetic_voc(
+        f"{BASELINE_DIR}/voc", seed=SEED, num_images=BASELINE_VOC_IMAGES,
+        image_sources=[f"{FIXTURES}/coco_640x480_420.jpg",
+                       f"{FIXTURES}/coco_portrait_427x640_420.jpg"],
+        embeddings=False)
+    roots = {"coco": coco, "voc": {"data_dir": voc["data_dir"]}}
+    print(f"baselines: roots {time.perf_counter() - t0:.1f} s (phase 25's "
+          f"COCO image root; a VOC root of {BASELINE_VOC_IMAGES} JPEGs)")
+    launches, passes = {}, []
+    validate_one = run_mod.Run._validate_one
+
+    def timed(self, loader, set_name, epoch=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = validate_one(self, loader, set_name, epoch)
+        passes.append((set_name, time.perf_counter() - t,
+                       self.val_batch_times[set_name]))
+        return out
+
+    for name, path, sets, root in BASELINE_FILES:
+        t1 = time.perf_counter()
+        cfg = protocol_config(path, roots[root], BASELINE_VAL, sets=sets)
+        params = write_params(cfg, f"{BASELINE_DIR}/{name}.yaml")
+        passes.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        with mock.patch.object(run_mod.Run, "_validate_one", timed):
+            rc = cli_main(["validate", "--parameters", params, "--out-dir",
+                           f"{BASELINE_DIR}/{name}", "--reruns", "1"],
+                          f"{BASELINE_DIR}/{name}.out")
+        t_cli = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        check(rc == 0, f"{name}: cli validate returned {rc}")
+        for k, v in fa.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        metrics = {k.split("/", 1)[1]: v
+                   for r in read_jsonl(f"{BASELINE_DIR}/{name}/metrics.jsonl")
+                   for k, v in r.items() if k.startswith("validate/")}
+        check(len(metrics) == 3 * len(sets)
+              and all(np.isfinite(list(metrics.values()))),
+              f"{name}: metrics {metrics}")
+        check([p[0] for p in passes] == list(sets), f"{name}: sets {passes}")
+        rates = []
+        for set_name, dt, times in passes:
+            episodes = sum(t[3] for t in times)
+            check(episodes == BASELINE_VAL, f"{name} {set_name}: {episodes} "
+                  "episodes")
+            # after the first batch (cuDNN's first calls, allocator growth)
+            late = (episodes - times[0][3]) / (times[0][0] + dt - times[1][0])
+            wait = sum(t[1] for t in times) / dt
+            rates.append(f"{set_name} {episodes / dt:.2f} episodes/s "
+                         f"({late:.2f} after the first batch), loader wait "
+                         f"{wait:.3f} of the pass")
+
+        # a profiler pass over the first set, then one batch card / CPU
+        flat = expand_experiment(cfg)[0]
+        run = Run().init(flat, f"{BASELINE_DIR}/{name}_direct",
+                         device="cuda")
+        loader = run.val_loaders[sets[0]]
+
+        def body():
+            t = time.perf_counter()
+            run._validate_one(loader, sets[0])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        prof, wall = time_kernels.profile_pass(body)
+        busy = sum(e.self_device_time_total / 1e3
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin_kernel" not in e.key)
+        (batch, _), _ = next(iter(loader))
+        device_batch, _ = run._device_batch(batch, example_rows=slice(1, None))
+        inputs, _ = divide_query_examples(device_batch)
+        model = run.state.model.eval()
+        with torch.no_grad():
+            gpu = model(inputs)[ResultDict.LOGITS]
+            cpu_model = copy.deepcopy(model).cpu()
+            t2 = time.perf_counter()
+            cpu = cpu_model({k: v.cpu() for k, v in inputs.items()})[
+                ResultDict.LOGITS]
+            t_cpu = time.perf_counter() - t2
+        diff, scale, agree = baseline_logits_agree(gpu, cpu, name)
+        run.close()
+        del run, model, cpu_model
+        torch.cuda.empty_cache()
+        print(f"baselines: {name} ({path.split('/', 2)[2]}, model "
+              f"{flat['model']}): cli validate {t_cli:.1f} s, "
+              + ", ".join(rates) + f", peak {peak / 2**30:.2f} GiB; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())
+                          if not k.endswith("bmiou"))
+              + f"; {sets[0]} under the profiler {wall:.2f} s, kernel time "
+              f"{busy:.1f} ms, device busy {busy / (wall * 1e3):.3f}; one "
+              f"batch {tuple(gpu.shape)} card / CPU (CPU {t_cpu:.1f} s): "
+              f"max |diff| {diff:.3g} at scale {scale:.3g}, argmax agreeing "
+              f"{agree:.6f}; {time.perf_counter() - t1:.1f} s")
+    check(not nonzero(launches), f"baselines: kernel launches "
+          f"{nonzero(launches)}")
+
+    for name in BASELINE_CASES:
+        t1 = time.perf_counter()
+        ours, ref = replay_baseline(name, "cuda")
+        CASES[name].compare(ours, ref)
+        print(f"golden {name}: fp32 on the card {time.perf_counter() - t1:.2f}"
+              f" s, max |port - reference| " + ", ".join(
+                  f"{k} {np.abs(ours[k] - ref[k]).max():.3g} (scale "
+                  f"{np.abs(ref[k]).max():.3g})" for k in sorted(ref)))
+    torch.cuda.empty_cache()
+    print(f"baselines: phase 28 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     card = phase_card()
     kind = torch.cuda.get_device_name(0)
@@ -4928,6 +5122,8 @@ def main() -> None:
     clock("26")
     paths.append(phase_crossdomain())
     clock("27")
+    paths.append(phase_baselines())
+    clock("28")
     print(f"profiler passes made again for a lost guard: "
           f"{time_kernels.guard_overruns}")
     summary = []

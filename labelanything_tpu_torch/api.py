@@ -36,7 +36,6 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from .models.build_lam import build_lam
-from .models.lam import Lam
 from .models.registry import model_registry
 from .typing import ResultDict
 from .utils.safetensors import load_file, save_file
@@ -108,10 +107,11 @@ def load_weights_file(path: str) -> Dict[str, torch.Tensor]:
 _NOT_BUILD_ARGS = ("model_type", "name", "checkpoint", "use_sam_checkpoint")
 
 
-def build_from_config(config: Dict[str, Any]) -> Lam:
+def build_from_config(config: Dict[str, Any]) -> torch.nn.Module:
     """Build the model a config describes: ``name`` picks an entry of the
-    registry ("lam_b", "lam_l", "lam_h", "lam_no_vit"); without one it is,
-    like the JAX ``LabelAnything``, the no-encoder ``build_lam``."""
+    registry (the LAM models "lam_b", "lam_l", "lam_h", "lam_no_vit", or the
+    baselines "panet", "ppnet", "denet", "bam", "hdmnet"); without one it
+    is, like the JAX ``LabelAnything``, the no-encoder ``build_lam``."""
     args = {k: v for k, v in config.items() if k not in _NOT_BUILD_ARGS}
     name = config.get("name")
     if name is None:
@@ -124,10 +124,12 @@ def build_from_config(config: Dict[str, Any]) -> Lam:
 
 def build_on_device(config: Dict[str, Any],
                     device: Union[str, torch.device] = "cuda",
-                    seed: Optional[int] = 0) -> Lam:
-    """The model of ``config`` built straight on ``device`` (no CPU copy
-    first). With a ``seed`` the weights come from :func:`init_weights`; with
-    ``seed=None`` they are left unset for a following ``load_state_dict``."""
+                    seed: Optional[int] = 0) -> torch.nn.Module:
+    """The model of ``config`` (a ``Lam`` or a baseline) built straight on
+    ``device`` (no CPU copy first). With a ``seed`` every parameter and
+    buffer comes from :func:`init_weights` (BatchNorm's running variances
+    1 + 0.05 x, positive); with ``seed=None`` they are left unset for a
+    following ``load_state_dict``."""
     with torch.device("meta"):
         model = build_from_config(config)
     model = model.to_empty(device=torch.device(device))

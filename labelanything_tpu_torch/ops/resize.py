@@ -1,4 +1,4 @@
-"""Bilinear resize (counterpart of ``labelanything_tpu/ops/resize.py``).
+"""Resizes (counterpart of ``labelanything_tpu/ops/resize.py``).
 
 The JAX version emulates ``F.interpolate(mode="bilinear",
 align_corners=False)`` with two interpolation matmuls for the TPU; here the
@@ -15,6 +15,7 @@ from __future__ import annotations
 import functools
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -80,3 +81,52 @@ def resize_bilinear(x: torch.Tensor, size: Sequence[int],
         return y.permute(0, 2, 3, 1)
     raise ValueError(f"unsupported spatial axes {spatial_axes} for a "
                      f"{x.dim()}-D input")
+
+
+def resize_bilinear_ac(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """Bilinear resize of the last two axes of ``x`` (..., H, W) with
+    ``align_corners=True`` (the JAX ``resize_bilinear_ac``, which takes
+    channels-last; the baselines call it throughout)."""
+    size = (int(size[0]), int(size[1]))
+    lead = x.shape[:-2]
+    y = F.interpolate(x.reshape((-1, 1) + x.shape[-2:]) if x.dim() != 4
+                      else x, size=size, mode="bilinear", align_corners=True)
+    return y.reshape(lead + size)
+
+
+def _take(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor
+          ) -> torch.Tensor:
+    return x.index_select(-2, rows.to(x.device)).index_select(
+        -1, cols.to(x.device))
+
+
+def resize_nearest_torch(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """Nearest resize of the last two axes by torch's ``mode="nearest"``
+    rule, source ``floor(dst * in / out)``, in integers: the float product
+    that ``F.interpolate`` takes can floor one pixel lower on a tie."""
+    (h, w), (oh, ow) = x.shape[-2:], (int(size[0]), int(size[1]))
+    return _take(x, (torch.arange(oh) * h) // oh, (torch.arange(ow) * w) // ow)
+
+
+def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """Nearest resize of the last two axes by ``jax.image.resize``'s rule,
+    source ``floor((dst + 0.5) * in / out)``, as XLA computes it: in
+    float32, with ``* in / out`` folded to a product by ``in * (1 / out)``.
+    Neither torch mode is this rule: ``"nearest"`` drops the half pixel, and
+    ``"nearest-exact"`` scales by ``in / out`` rounded once (three rows
+    apart from 60 to 237), and the exact rule is one row apart from 60 to
+    473."""
+    def rows(n_in: int, n_out: int) -> torch.Tensor:
+        scale = np.float32(n_in) * (np.float32(1) / np.float32(n_out))
+        pos = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * scale
+        return torch.from_numpy(np.floor(pos).astype(np.int64))
+
+    (h, w), (oh, ow) = x.shape[-2:], (int(size[0]), int(size[1]))
+    return _take(x, rows(h, oh), rows(w, ow))
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
+    """``F.adaptive_avg_pool2d`` over the last two axes: bin ``i`` averages
+    rows ``floor(i H / out)`` to ``ceil((i + 1) H / out)``, as the JAX
+    version's pooling matmuls do."""
+    return F.adaptive_avg_pool2d(x, (int(out_hw[0]), int(out_hw[1])))

@@ -158,14 +158,17 @@ def init_weights(module: nn.Module, seed: int = 0) -> None:
     x of each entry's shape; biases get 0.02 x, vectors (norm weights)
     1 + 0.05 x, and arrays of two or more axes x / sqrt(fan_in), where
     fan_in is the product of all axes but the first. So the relative
-    position tables are nonzero, unlike a fresh model's."""
+    position tables are nonzero, unlike a fresh model's. BatchNorm's
+    running means (the baselines' only; the LAM models have none) are
+    drawn as biases, 0.02 x: at the harness's 1 + 0.05 x a unit behind a
+    ReLU is mostly 0, and every DENet logit is."""
     gen = torch.Generator().manual_seed(seed)
     state = module.state_dict()
     with torch.no_grad():
         for key in sorted(state):
             target = state[key]
             n = torch.randn(tuple(target.shape), generator=gen)
-            if key.endswith(".bias"):
+            if key.endswith((".bias", ".running_mean")):
                 value = 0.02 * n
             elif n.dim() <= 1:
                 value = 1.0 + 0.05 * n
@@ -173,3 +176,150 @@ def init_weights(module: nn.Module, seed: int = 0) -> None:
                 fan_in = max(1, int(np.prod(n.shape[1:])))
                 value = n / fan_in ** 0.5
             target.copy_(value)
+
+
+# --------------------------------------------------------------------- #
+# the baselines: JAX variables -> the reference's state-dict layout
+# --------------------------------------------------------------------- #
+
+# the inverses of the JAX package's convert_{ppnet,denet,bam,hdmnet}_state_dict
+# (``utils/torch_import.py``): flax module paths -> the reference's names,
+# which are the port's; the wrapper's scope ("ppnet.", "denet.", "bam.",
+# "hdmnet.", or none for a bare module) is kept
+_DOWNSAMPLE_INVERSE: List[Tuple[str, str]] = [
+    (r"\.downsample_conv\.", ".downsample.0."),
+    (r"\.downsample_bn\.", ".downsample.1."),
+]
+
+_RESNET_INVERSE: List[Tuple[str, str]] = [
+    (r"(^|\.)layer(\d)_(\d+)\.", r"\1layer\2.\3."),
+] + _DOWNSAMPLE_INVERSE
+
+_DENET_INVERSE: List[Tuple[str, str]] = [
+    (r"(^|\.)gam\.gate_(\d)\.", r"\1estimator.gam.gate.\2."),
+    (r"(^|\.)map\.linear\.", r"\1estimator.map.linear."),
+    (r"(^|\.)embedding_0\.", r"\1embedding.0."),
+    (r"\.aspp\.convs_4\.", ".aspp.convs.4.1."),
+    (r"\.aspp\.convs_(\d)\.", r".aspp.convs.\1.0."),
+    (r"\.aspp\.project\.", ".aspp.project.0."),
+] + _RESNET_INVERSE
+
+_BAM_BACKBONE_INVERSE: List[Tuple[str, str]] = [
+    (r"(^|\.)backbone\.layer0_(\d)\.", r"\1layer0.\2."),
+    (r"(^|\.)backbone\.layer([1-4])_(\d+)\.", r"\1layer\2.\3."),
+    (r"(^|\.)kshot_rw_(\d)\.", r"\1kshot_rw.\2."),
+] + _DOWNSAMPLE_INVERSE
+
+_BAM_INVERSE: List[Tuple[str, str]] = _BAM_BACKBONE_INVERSE + [
+    (r"(^|\.)ppm\.features_(\d)_conv\.", r"\1learner_base.0.features.\2.1."),
+    (r"(^|\.)ppm\.features_(\d)_bn\.", r"\1learner_base.0.features.\2.2."),
+    (r"(^|\.)base_cls_(\d)\.", r"\1learner_base.1.\2."),
+    (r"(^|\.)(down_query|down_supp|init_merge|res1_meta)_0\.", r"\1\2.0."),
+    (r"(^|\.)ASPP_meta\.layer6_(\d)\.", r"\1ASPP_meta.layer6_\2.0."),
+    (r"(^|\.)(res2_meta|cls_meta)_(\d)\.", r"\1\2.\3."),
+]
+
+_MIX = r"\1transformer.mix_transformer."
+_HDMNET_INVERSE: List[Tuple[str, str]] = _BAM_BACKBONE_INVERSE + [
+    (r"(^|\.)ppm\.features_(\d)_conv\.", r"\1ppm.features.\2.1."),
+    (r"(^|\.)ppm\.features_(\d)_bn\.", r"\1ppm.features.\2.2."),
+    (r"(^|\.)cls_(\d)\.", r"\1cls.\2."),
+    (r"(^|\.)base_learnear_2\.", r"\1base_learnear.2."),
+    (r"(^|\.)(down_supp|down_query|query_merge|supp_merge)_0\.", r"\1\2.0."),
+    (r"(^|\.)transformer\.down_(\d)_patch_proj\.",
+     _MIX + r"down_sample_layers.\2.0.projection."),
+    (r"(^|\.)transformer\.down_(\d)_patch_norm\.",
+     _MIX + r"down_sample_layers.\2.0.norm."),
+    (r"(^|\.)transformer\.down_(\d)_enc(\d)\.",
+     lambda m: f"{m.group(1)}transformer.mix_transformer.down_sample_layers."
+               f"{m.group(2)}.{int(m.group(3)) + 1}."),
+    (r"(^|\.)transformer\.down_(\d)_norm\.",
+     _MIX + r"down_sample_layers.\2.3."),
+    (r"(^|\.)transformer\.match_(\d)_enc\.", _MIX + r"match_layers.\2.0."),
+    (r"(^|\.)transformer\.match_(\d)_(conv|bn)\.",
+     _MIX + r"match_layers.\2.1.\3."),
+    (r"(^|\.)transformer\.parse_(\d)_(conv|bn)(\d)\.",
+     lambda m: f"{m.group(1)}transformer.mix_transformer.parse_layers."
+               f"{m.group(2)}.{2 * int(m.group(4)) + (m.group(3) == 'bn')}."),
+    (r"(^|\.)transformer\.cls_(conv|bn)(\d)\.",
+     lambda m: f"{m.group(1)}transformer.mix_transformer.cls."
+               f"{2 * int(m.group(3)) + (m.group(2) == 'bn')}."),
+    (r"\.attn\.linear_([qkvo])\.", r".attn.attn.linear_\1."),
+    (r"\.attn_sr\.", ".attn.sr."),
+    (r"\.attn_norm\.", ".attn.norm."),
+    (r"\.ffn\.fc1\.", ".ffn.layers.0."),
+    (r"\.ffn\.pe_conv\.", ".ffn.layers.1."),
+    (r"\.ffn\.fc2\.", ".ffn.layers.4."),
+]
+
+# PANet: the JAX VGG16's conv_k are torchvision's vgg16().features indexes
+_VGG16_CONV_INDEX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_PANET_INVERSE: List[Tuple[str, str]] = [
+    (r"(^|\.)encoder\.conv_(\d+)\.",
+     lambda m: f"{m.group(1)}encoder.features."
+               f"{_VGG16_CONV_INDEX[int(m.group(2))]}."),
+]
+
+BASELINE_INVERSES = {"ppnet": _RESNET_INVERSE, "denet": _DENET_INVERSE,
+                     "bam": _BAM_INVERSE, "hdmnet": _HDMNET_INVERSE,
+                     "panet": _PANET_INVERSE}
+
+# keys of the reference checkpoints that no eval path holds: PPNet's
+# training-time ASPP head, the losses' buffers (the JAX converters skip
+# them too)
+_TRAINING_ONLY = {"ppnet": ("aspp.", ".sem"), "bam": ("criterion",),
+                  "hdmnet": ("criterion",)}
+
+
+def state_dict_from_jax_baseline(name: str, variables: Dict[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """The reference-layout state dict of a JAX baseline's variables
+    (``{"params": ..., "batch_stats": ...}``, numpy or JAX leaves), which
+    the port's model of ``name`` loads with ``strict=True``: flax paths
+    mapped back by :data:`BASELINE_INVERSES` (the JAX converters' renames
+    undone; PANet's ``encoder.conv_k`` to VGG16's ``encoder.features.i``),
+    conv kernels (kh, kw, in, out) to (out, in, kh, kw), dense kernels
+    transposed, ``scale`` to ``weight``, BatchNorm's ``mean`` / ``var`` to
+    ``running_mean`` / ``running_var`` with a ``num_batches_tracked`` of 0.
+    DENet's class bank ``weight`` is kept as it is."""
+    renames = BASELINE_INVERSES[name]
+    out: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(coll, {})).items():
+            value = np.asarray(value)
+            module, leaf = ".".join(path[:-1]), path[-1]
+            if coll == "batch_stats":
+                leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
+            elif leaf == "kernel":
+                leaf = "weight"
+                value = (value.transpose(3, 2, 0, 1) if value.ndim == 4
+                         else value.T)
+            elif leaf == "scale":
+                leaf = "weight"
+            elif leaf == "weight":              # DENet's class bank
+                leaf = "estimator.weight"
+            key = _apply_renames(f"{module}.{leaf}" if module else leaf,
+                                 renames)
+            out[key] = torch.from_numpy(np.array(value))
+            if leaf == "running_mean":
+                out[key[:-len("running_mean")] + "num_batches_tracked"] = \
+                    torch.zeros((), dtype=torch.long)
+    return out
+
+
+def reference_baseline_state_dict(name: str, state: Dict[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """A reference baseline checkpoint (numpy or tensors) as the port's
+    model of ``name`` loads it with ``strict=True``: a ``module.`` prefix
+    dropped, and the training-only keys that no eval path holds (PPNet's
+    ``aspp.*`` head, the losses' buffers), as the JAX converters drop
+    them."""
+    skip = _TRAINING_ONLY.get(name, ())
+    out = {}
+    for key, value in state.items():
+        key = key[len("module."):] if key.startswith("module.") else key
+        if any(s in key for s in skip):
+            continue
+        out[key] = (value if isinstance(value, torch.Tensor)
+                    else torch.from_numpy(np.array(value)))
+    return out

@@ -459,6 +459,12 @@ def test_port_imports_no_jax():
                "labelanything_tpu_torch.data.image_io",
                "labelanything_tpu_torch.data.crossdomain",
                "labelanything_tpu_torch.data.synthetic_crossdomain",
+               # the ResNet / VGG baselines
+               "labelanything_tpu_torch.models.ppnet",
+               "labelanything_tpu_torch.models.denet",
+               "labelanything_tpu_torch.models.bam",
+               "labelanything_tpu_torch.models.hdmnet",
+               "labelanything_tpu_torch.models.panet",
                # chip_smoke.py's golden replays
                "tests.torch_golden_replay"]
     code = ("import sys\n"

@@ -383,8 +383,8 @@ def test_vit_large_layouts_match_jax(name, embed, depth, heads, global_at):
 
 
 def test_registry_covers_the_large_encoders(monkeypatch):
-    assert {"lam", "lam_no_vit", "lam_b", "lam_l", "lam_h"} == set(
-        model_registry)
+    assert {"lam", "lam_no_vit", "lam_b", "lam_l", "lam_h", "panet", "ppnet",
+            "denet", "bam", "hdmnet"} == set(model_registry)
     assert sorted(tbe.ENCODERS) == ["vit_b", "vit_h", "vit_l"]
     for name, factory in (("lam_l", "build_vit_l"), ("lam_h", "build_vit_h")):
         seen = {}

@@ -1,13 +1,17 @@
-"""The two full-size golden fixtures replayed through the PyTorch port.
+"""Golden fixtures replayed through the PyTorch port.
 
 ``canonical_full_forward`` (``lam_no_vit`` at the 480-px configuration of
 parameters/trainval/coco20i/mae.yaml) and ``sam_released_full_forward``
 (``lam_b``: SAM ViT-B at 1024 px, embed 512) hold the original PyTorch
 LabelAnything's outputs for reference-layout weights made from a seed
-(``tests/golden.py``). This module imports torch, numpy and
-``tests.golden`` only, so the replays run where JAX is absent too:
-``tests/test_torch_lam.py`` runs them on the CPU (marked ``slow``) and
-``chip_smoke.py`` on the card.
+(``tests/golden.py``); ``ppnet_full``, ``denet_2way_2shot``, ``bam_1shot``
+and ``hdmnet_1shot`` the original baselines' (``tests/golden_baselines.py``:
+PPNet on a (1, 1, 1, 2) ResNet, DENet on an 8 x 8 stride-8 conv for a
+backbone, BAM and HDMNet on the full ResNet-50, all at 64 or 65 px). This
+module imports torch, numpy and ``tests.golden`` only, so the replays run
+where JAX is absent too: ``tests/test_torch_lam.py`` and
+``tests/test_torch_baselines.py`` run them on the CPU and ``chip_smoke.py``
+on the card.
 """
 
 from __future__ import annotations
@@ -19,7 +23,12 @@ import torch
 
 from labelanything_tpu_torch.models.build_lam import (build_lam_no_vit,
                                                       build_lam_vit_b)
+from labelanything_tpu_torch.models.bam import BAM
+from labelanything_tpu_torch.models.denet import DENet
+from labelanything_tpu_torch.models.hdmnet import HDMNet
+from labelanything_tpu_torch.models.ppnet import PPNet
 from labelanything_tpu_torch.typing import BatchKeys, ResultDict
+from labelanything_tpu_torch.utils.weights import reference_baseline_state_dict
 from tests.golden import C_BANK, C_EMBED, C_IMG, C_IMG_EMBED, CASES, \
     load_fixture, make_weights
 
@@ -72,3 +81,62 @@ def replay(name: str, device="cpu", **options
              for k, v in _batch(case, key).items()}
     logits = model(batch)[ResultDict.LOGITS][:, :, :h, :w]
     return case._summarize(logits.float().cpu().numpy()), outputs
+
+
+BASELINE_CASES = ("ppnet_full", "denet_2way_2shot", "bam_1shot",
+                  "hdmnet_1shot")
+
+
+class _TinyBackbone(torch.nn.Module):
+    """The DENet case's backbone: one 8 x 8 conv of stride 8 to layer3's
+    1024 channels (``tests/test_denet.py``'s ``_TorchTinyBackbone``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(3, 1024, 8, 8)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+def _baseline(name: str):
+    """(the bare module of a baseline case, its state-dict kind, the case's
+    inputs as NCHW arrays in the module's argument order)."""
+    case = CASES[name]
+    if name == "ppnet_full":
+        sup, qry, fore = case._inputs()
+        model = PPNet(num_centers=case.CENTERS, kmeans_iters=1,
+                      resnet_layers=case.LAYERS)
+        # (Wa, Sh, B, ...) -> (B, Wa, Sh, ...)
+        fore = fore.transpose(2, 0, 1, 3, 4)
+        return model, "ppnet", (sup.transpose(2, 0, 1, 3, 4, 5), fore,
+                                1.0 - fore, qry)
+    if name == "denet_2way_2shot":
+        model = DENet(maximum_num_classes=case.NUM_CLASSES,
+                      backbone=_TinyBackbone())
+        return model, "denet", case._inputs()
+    if name == "bam_1shot":
+        return BAM(shot=case.shot, base_classes=60), "bam", case._inputs()
+    return HDMNet(shot=case.shot, base_classes=60), "hdmnet", case._inputs()
+
+
+@torch.no_grad()
+def replay_baseline(name: str, device="cpu"
+                    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """(the port's outputs, the fixture's) for a baseline case, in fp32 on
+    ``device``: the weights made from the fixture's shapes, the keys no
+    eval path holds dropped (``reference_baseline_state_dict``), loaded
+    with ``strict=True``. Compare them with ``CASES[name].compare``."""
+    case = CASES[name]
+    shapes, outputs = load_fixture(name)
+    with torch.device("meta"):
+        model, kind, inputs = _baseline(name)
+    model = model.to_empty(device=torch.device(device)).eval()
+    model.load_state_dict(reference_baseline_state_dict(
+        kind, make_weights(case, shapes)), strict=True)
+    args = [torch.as_tensor(np.asarray(a), device=device) for a in inputs]
+    out = model(*args)
+    if name == "denet_2way_2shot":
+        return {"full": out[0].cpu().numpy(),
+                "binary": out[1].cpu().numpy()}, outputs
+    return {"out": out.float().cpu().numpy()}, outputs
