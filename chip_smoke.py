@@ -239,7 +239,8 @@ reports):
    as it stands (its model block sets ``example_class_attention`` False,
    mae.yaml's True); with the block matched, ``cli validate --checkpoint
    <phase 20's run>/checkpoints`` runs its 4 folds x 4 sets, cut to
-   EVAL_RERUNS reruns and EVAL_VAL episodes a set (fp32): every
+   EVAL_RERUNS reruns and EVAL_VAL episodes a set (EVAL_VAL_5SHOT for the
+   5-shot sets; fp32): every
    ``fold{i}/<set>_<metric>``, ``mean/miou`` and ``mean/fbiou`` finite,
    the loader threads gone with the folds' ``Run``s; ``--folds 0
    --compare`` (on N1K1 and N2K1 at EVAL_PARITY_VAL episodes): the deltas
@@ -3639,8 +3640,12 @@ def phase_mae_run() -> dict:
 EVAL_YAML = "parameters/validation/COCO/mae.yaml"
 EVAL_DIR = "build/eval_run"
 # (1 rerun: each fold's sets, keys and episodes kept, phase 21 halved to
-# keep the script inside its time limit)
+# keep the script inside its time limit; the 5-shot sets, which wait on
+# the thread loader, at EVAL_VAL_5SHOT episodes for the same reason)
 EVAL_RERUNS, EVAL_VAL, EVAL_PARITY_VAL = 1, 64, 16
+EVAL_VAL_5SHOT = 16
+EVAL_VAL_BY_SET = {"val_coco20i_N1K5": EVAL_VAL_5SHOT,
+                   "val_coco20i_N2K5": EVAL_VAL_5SHOT}
 # the validation file's model block is not the training file's: a
 # checkpoint of mae.yaml loads once the block matches it
 EVAL_MODEL = {"example_class_attention": [True]}
@@ -3670,11 +3675,12 @@ def mae_paths() -> dict:
 
 
 def protocol_config(yaml_path: str, paths: dict, val: int, sets=None,
-                    model: dict = None) -> dict:
+                    model: dict = None, val_by_set: dict = None) -> dict:
     """The parameter file ``yaml_path`` as the port's reader gives it, its
     sets' data paths replaced by ``paths`` and ``val`` episodes a
-    validation set; ``sets`` keeps those alone (in every grid), ``model``
-    updates the model block."""
+    validation set (``val_by_set`` names the sets that take another
+    count); ``sets`` keeps those alone (in every grid), ``model`` updates
+    the model block."""
     from labelanything_tpu_torch.utils.config import load_yaml
 
     cfg = load_yaml(yaml_path)
@@ -3688,7 +3694,8 @@ def protocol_config(yaml_path: str, paths: dict, val: int, sets=None,
             continue
         datasets[name].update({k: [v] for k, v in paths.items()})
         if name.startswith("val_"):
-            datasets[name]["val_num_samples"] = [val]
+            datasets[name]["val_num_samples"] = [
+                (val_by_set or {}).get(name, val)]
     if model:
         p["model"].update(model)
     return cfg
@@ -3863,7 +3870,8 @@ def phase_eval() -> dict:
           f"{refusal[:160]}...")
 
     params = write_params(protocol_config(EVAL_YAML, paths, EVAL_VAL,
-                                          model=EVAL_MODEL),
+                                          model=EVAL_MODEL,
+                                          val_by_set=EVAL_VAL_BY_SET),
                           f"{EVAL_DIR}/validation.yaml")
     fold_s, validate = [], run_mod.Run.validate
 
@@ -3909,9 +3917,11 @@ def phase_eval() -> dict:
           and np.isfinite(results["mean/fbiou"]),
           f"eval: means {results.get('mean/miou')} "
           f"{results.get('mean/fbiou')}")
-    episodes = 4 * len(sets) * EVAL_RERUNS * EVAL_VAL
+    counts = [EVAL_VAL_BY_SET.get(name, EVAL_VAL) for name in sets]
+    episodes = 4 * EVAL_RERUNS * sum(counts)
     print(f"eval: validate --checkpoint, 4 folds x {len(sets)} sets x "
-          f"{EVAL_RERUNS} reruns x {EVAL_VAL} episodes (fp32, module path: "
+          f"{EVAL_RERUNS} reruns x {'/'.join(map(str, counts))} episodes "
+          f"(fp32, module path: "
           f"launches {nonzero(fp32_launches)}): CLI {t_cli:.1f} s, the "
           f"folds' validation " + ", ".join(f"{t:.1f}" for t in fold_s)
           + f" s, {episodes / sum(fold_s):.2f} episodes/s, peak memory "
@@ -3999,7 +4009,8 @@ def phase_eval() -> dict:
 
     # the busy share of a validation pass
     flat = expand_experiment(protocol_config(EVAL_YAML, paths, EVAL_VAL,
-                                             model=EVAL_MODEL))[0]
+                                             model=EVAL_MODEL,
+                                             val_by_set=EVAL_VAL_BY_SET))[0]
     run = Run().init(flat, run_dir=f"{EVAL_DIR}/timed", device="cuda")
     run.state.model.load_state_dict(ev._load_model_params(ckpt, run))
     heavy = "val_coco20i_N2K5"
@@ -4017,7 +4028,8 @@ def phase_eval() -> dict:
                and "spin_kernel" not in e.key]
     busy = sum(t for t, _, _ in kernels)
     run.close()
-    print(f"eval profile: {heavy}, {EVAL_VAL} episodes, {wall:.2f} s under "
+    print(f"eval profile: {heavy}, {EVAL_VAL_BY_SET[heavy]} episodes, "
+          f"{wall:.2f} s under "
           f"the profiler, kernel time {busy:.1f} ms, device busy "
           f"{busy / (wall * 1e3):.3f} of the window")
     for t, n, key in sorted(kernels, reverse=True)[:6]:
@@ -4892,6 +4904,7 @@ BASELINE_FILES = (
      ("val_pascal5i_N1K1", "val_pascal5i_N2K1"), "voc"),
 )
 BASELINE_ARGMAX_AGREE = 0.999
+SWIN_VIT_DIR = "build/swin_vit_run"
 
 
 def write_image_root() -> dict:
@@ -4924,34 +4937,20 @@ def baseline_logits_agree(gpu: torch.Tensor, cpu: torch.Tensor,
     return diff, float(np.abs(c[finite]).max()), agree
 
 
-def phase_baselines() -> dict:
-    """Phase 28: the five baselines through ``cli validate`` on the card, a
-    profiler pass over a set, one batch each card against CPU, and the four
-    golden fixtures of the original baselines on the card."""
+def baseline_file_pass(name: str, path: str, sets: tuple, paths: dict,
+                       out_dir: str) -> dict:
+    """``cli validate`` of one baseline file on the card (``sets`` kept,
+    BASELINE_VAL episodes each, one rerun), its sets' rates, a profiler
+    pass over its first set and one batch card against CPU, printed on one
+    line; returns the CLI call's kernel launches."""
     import copy
-    import shutil
 
-    from labelanything_tpu_torch.data.synthetic_voc import write_synthetic_voc
     from labelanything_tpu_torch.experiment import Run
     from labelanything_tpu_torch.experiment import run as run_mod
     from labelanything_tpu_torch.train.substitutor import divide_query_examples
     from labelanything_tpu_torch.utils.config import expand_experiment
-    from tests.torch_golden_replay import BASELINE_CASES, replay_baseline
 
-    t0 = time.perf_counter()
-    shutil.rmtree(BASELINE_DIR, ignore_errors=True)
-    coco = image_root_paths()
-    if not os.path.exists(coco["instances_path"]):
-        coco = write_image_root()
-    voc = write_synthetic_voc(
-        f"{BASELINE_DIR}/voc", seed=SEED, num_images=BASELINE_VOC_IMAGES,
-        image_sources=[f"{FIXTURES}/coco_640x480_420.jpg",
-                       f"{FIXTURES}/coco_portrait_427x640_420.jpg"],
-        embeddings=False)
-    roots = {"coco": coco, "voc": {"data_dir": voc["data_dir"]}}
-    print(f"baselines: roots {time.perf_counter() - t0:.1f} s (phase 25's "
-          f"COCO image root; a VOC root of {BASELINE_VOC_IMAGES} JPEGs)")
-    launches, passes = {}, []
+    passes = []
     validate_one = run_mod.Run._validate_one
 
     def timed(self, loader, set_name, epoch=None):
@@ -4962,88 +4961,107 @@ def phase_baselines() -> dict:
                        self.val_batch_times[set_name]))
         return out
 
-    for name, path, sets, root in BASELINE_FILES:
-        t1 = time.perf_counter()
-        cfg = protocol_config(path, roots[root], BASELINE_VAL, sets=sets)
-        params = write_params(cfg, f"{BASELINE_DIR}/{name}.yaml")
-        passes.clear()
+    t1 = time.perf_counter()
+    cfg = protocol_config(path, paths, BASELINE_VAL, sets=sets)
+    params = write_params(cfg, f"{out_dir}/{name}.yaml")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with mock.patch.object(run_mod.Run, "_validate_one", timed):
+        rc = cli_main(["validate", "--parameters", params, "--out-dir",
+                       f"{out_dir}/{name}", "--reruns", "1"],
+                      f"{out_dir}/{name}.out")
+    t_cli = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"{name}: cli validate returned {rc}")
+    launches = dict(fa.LAUNCHES)
+    metrics = {k.split("/", 1)[1]: v
+               for r in read_jsonl(f"{out_dir}/{name}/metrics.jsonl")
+               for k, v in r.items() if k.startswith("validate/")}
+    check(len(metrics) == 3 * len(sets)
+          and all(np.isfinite(list(metrics.values()))),
+          f"{name}: metrics {metrics}")
+    check([p[0] for p in passes] == list(sets), f"{name}: sets {passes}")
+    rates = []
+    for set_name, dt, times in passes:
+        episodes = sum(t[3] for t in times)
+        check(episodes == BASELINE_VAL, f"{name} {set_name}: {episodes} "
+              "episodes")
+        # after the first batch (cuDNN's first calls, allocator growth)
+        late = (episodes - times[0][3]) / (times[0][0] + dt - times[1][0])
+        wait = sum(t[1] for t in times) / dt
+        rates.append(f"{set_name} {episodes / dt:.2f} episodes/s "
+                     f"({late:.2f} after the first batch), loader wait "
+                     f"{wait:.3f} of the pass")
+
+    # a profiler pass over the first set, then one batch card / CPU
+    flat = expand_experiment(cfg)[0]
+    run = Run().init(flat, f"{out_dir}/{name}_direct", device="cuda")
+    loader = run.val_loaders[sets[0]]
+
+    def body():
+        t = time.perf_counter()
+        run._validate_one(loader, sets[0])
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fa.reset_launches()
-        with mock.patch.object(run_mod.Run, "_validate_one", timed):
-            rc = cli_main(["validate", "--parameters", params, "--out-dir",
-                           f"{BASELINE_DIR}/{name}", "--reruns", "1"],
-                          f"{BASELINE_DIR}/{name}.out")
-        t_cli = time.perf_counter() - t1
-        peak = torch.cuda.max_memory_allocated()
-        check(rc == 0, f"{name}: cli validate returned {rc}")
-        for k, v in fa.LAUNCHES.items():
-            launches[k] = launches.get(k, 0) + v
-        metrics = {k.split("/", 1)[1]: v
-                   for r in read_jsonl(f"{BASELINE_DIR}/{name}/metrics.jsonl")
-                   for k, v in r.items() if k.startswith("validate/")}
-        check(len(metrics) == 3 * len(sets)
-              and all(np.isfinite(list(metrics.values()))),
-              f"{name}: metrics {metrics}")
-        check([p[0] for p in passes] == list(sets), f"{name}: sets {passes}")
-        rates = []
-        for set_name, dt, times in passes:
-            episodes = sum(t[3] for t in times)
-            check(episodes == BASELINE_VAL, f"{name} {set_name}: {episodes} "
-                  "episodes")
-            # after the first batch (cuDNN's first calls, allocator growth)
-            late = (episodes - times[0][3]) / (times[0][0] + dt - times[1][0])
-            wait = sum(t[1] for t in times) / dt
-            rates.append(f"{set_name} {episodes / dt:.2f} episodes/s "
-                         f"({late:.2f} after the first batch), loader wait "
-                         f"{wait:.3f} of the pass")
+        return time.perf_counter() - t
 
-        # a profiler pass over the first set, then one batch card / CPU
-        flat = expand_experiment(cfg)[0]
-        run = Run().init(flat, f"{BASELINE_DIR}/{name}_direct",
-                         device="cuda")
-        loader = run.val_loaders[sets[0]]
+    prof, wall = time_kernels.profile_pass(body)
+    busy = sum(e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.key)
+    (batch, _), _ = next(iter(loader))
+    device_batch, _ = run._device_batch(batch, example_rows=slice(1, None))
+    inputs, _ = divide_query_examples(device_batch)
+    model = run.state.model.eval()
+    with torch.no_grad():
+        gpu = model(inputs)[ResultDict.LOGITS]
+        cpu_model = copy.deepcopy(model).cpu()
+        t2 = time.perf_counter()
+        cpu = cpu_model({k: v.cpu() for k, v in inputs.items()})[
+            ResultDict.LOGITS]
+        t_cpu = time.perf_counter() - t2
+    diff, scale, agree = baseline_logits_agree(gpu, cpu, name)
+    run.close()
+    del run, model, cpu_model
+    torch.cuda.empty_cache()
+    print(f"baselines: {name} ({path.split('/', 2)[2]}, model "
+          f"{flat['model']}): cli validate {t_cli:.1f} s, "
+          + ", ".join(rates) + f", peak {peak / 2**30:.2f} GiB; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())
+                      if not k.endswith("bmiou"))
+          + f"; {sets[0]} under the profiler {wall:.2f} s, kernel time "
+          f"{busy:.1f} ms, device busy {busy / (wall * 1e3):.3f}; one "
+          f"batch {tuple(gpu.shape)} card / CPU (CPU {t_cpu:.1f} s): "
+          f"max |diff| {diff:.3g} at scale {scale:.3g}, argmax agreeing "
+          f"{agree:.6f}; {time.perf_counter() - t1:.1f} s")
+    return launches
 
-        def body():
-            t = time.perf_counter()
-            run._validate_one(loader, sets[0])
-            torch.cuda.synchronize()
-            return time.perf_counter() - t
 
-        prof, wall = time_kernels.profile_pass(body)
-        busy = sum(e.self_device_time_total / 1e3
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "spin_kernel" not in e.key)
-        (batch, _), _ = next(iter(loader))
-        device_batch, _ = run._device_batch(batch, example_rows=slice(1, None))
-        inputs, _ = divide_query_examples(device_batch)
-        model = run.state.model.eval()
-        with torch.no_grad():
-            gpu = model(inputs)[ResultDict.LOGITS]
-            cpu_model = copy.deepcopy(model).cpu()
-            t2 = time.perf_counter()
-            cpu = cpu_model({k: v.cpu() for k, v in inputs.items()})[
-                ResultDict.LOGITS]
-            t_cpu = time.perf_counter() - t2
-        diff, scale, agree = baseline_logits_agree(gpu, cpu, name)
-        run.close()
-        del run, model, cpu_model
-        torch.cuda.empty_cache()
-        print(f"baselines: {name} ({path.split('/', 2)[2]}, model "
-              f"{flat['model']}): cli validate {t_cli:.1f} s, "
-              + ", ".join(rates) + f", peak {peak / 2**30:.2f} GiB; "
-              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())
-                          if not k.endswith("bmiou"))
-              + f"; {sets[0]} under the profiler {wall:.2f} s, kernel time "
-              f"{busy:.1f} ms, device busy {busy / (wall * 1e3):.3f}; one "
-              f"batch {tuple(gpu.shape)} card / CPU (CPU {t_cpu:.1f} s): "
-              f"max |diff| {diff:.3g} at scale {scale:.3g}, argmax agreeing "
-              f"{agree:.6f}; {time.perf_counter() - t1:.1f} s")
-    check(not nonzero(launches), f"baselines: kernel launches "
-          f"{nonzero(launches)}")
+def baseline_roots() -> dict:
+    """Phase 25's COCO image root and phase 28's VOC root of
+    BASELINE_VOC_IMAGES JPEGs, each written where it is missing."""
+    from labelanything_tpu_torch.data.synthetic_voc import write_synthetic_voc
 
-    for name in BASELINE_CASES:
+    coco = image_root_paths()
+    if not os.path.exists(coco["instances_path"]):
+        coco = write_image_root()
+    voc_dir = f"{BASELINE_DIR}/voc"
+    if not os.path.exists(voc_dir):
+        write_synthetic_voc(
+            voc_dir, seed=SEED, num_images=BASELINE_VOC_IMAGES,
+            image_sources=[f"{FIXTURES}/coco_640x480_420.jpg",
+                           f"{FIXTURES}/coco_portrait_427x640_420.jpg"],
+            embeddings=False)
+    return {"coco": coco, "voc": {"data_dir": voc_dir}}
+
+
+def replay_golden(names) -> None:
+    """The golden fixtures ``names`` replayed on the card, each against the
+    original's outputs at its case's tolerances."""
+    from tests.torch_golden_replay import replay_baseline
+
+    for name in names:
         t1 = time.perf_counter()
         ours, ref = replay_baseline(name, "cuda")
         CASES[name].compare(ours, ref)
@@ -5052,7 +5070,186 @@ def phase_baselines() -> dict:
                   f"{k} {np.abs(ours[k] - ref[k]).max():.3g} (scale "
                   f"{np.abs(ref[k]).max():.3g})" for k in sorted(ref)))
     torch.cuda.empty_cache()
+
+
+def phase_baselines() -> dict:
+    """Phase 28: the five baselines through ``cli validate`` on the card, a
+    profiler pass over a set, one batch each card against CPU, and the four
+    golden fixtures of the original baselines on the card."""
+    import shutil
+
+    from tests.torch_golden_replay import BASELINE_CASES
+
+    t0 = time.perf_counter()
+    shutil.rmtree(BASELINE_DIR, ignore_errors=True)
+    roots = baseline_roots()
+    print(f"baselines: roots {time.perf_counter() - t0:.1f} s (phase 25's "
+          f"COCO image root; a VOC root of {BASELINE_VOC_IMAGES} JPEGs)")
+    launches = {}
+    for name, path, sets, root in BASELINE_FILES:
+        for k, v in baseline_file_pass(name, path, sets, roots[root],
+                                       BASELINE_DIR).items():
+            launches[k] = launches.get(k, 0) + v
+    check(not nonzero(launches), f"baselines: kernel launches "
+          f"{nonzero(launches)}")
+    replay_golden(BASELINE_CASES)
     print(f"baselines: phase 28 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# phase 29: the Swin-B DCAMA and the FPTrans baselines through ``cli
+# validate`` at the full width and depth of their files (Swin-B at 384 px;
+# two ViT-B/16 of depth 10 at 480 px), and DCAMA's training recipe through
+# ``cli run``; seeded weights, fp32 (the files set no dtype)
+SWIN_VIT_FILES = (
+    ("dcama", "parameters/validation/COCO/dcama.yaml",
+     ("val_coco20i_N1K1", "val_coco20i_N2K1"), "coco"),
+    ("fptrans", "parameters/validation/COCO/fptrans_1shot.yaml",
+     ("val_coco20i_N1K1",), "coco"),
+    # no data_dir in the Pascal file (ROADMAP C12): the VOC root's
+    ("fptrans_pascal", "parameters/validation/Pascal/fptrans.yaml",
+     ("val_pascal5i_N1K1",), "voc"),
+)
+DCAMA_TRAIN_YAML = "parameters/trainval/coco20i/dcama.yaml"
+DCAMA_STEPS = 4
+DCAMA_TUPLE = [2, 1, 2]           # one of the file's: 2 episodes, 1-way 2-shot
+DCAMA_LOSS_RTOL = 2e-3
+
+
+def dcama_train_config(paths: dict, steps: int = DCAMA_STEPS) -> dict:
+    """``trainval/coco20i/dcama.yaml``'s first grid point on the image root:
+    one epoch of ``steps`` steps at DCAMA_TUPLE, no validation set, 16
+    loader threads; the file's SGD, warm-up and prompt types as they are."""
+    from labelanything_tpu_torch.utils.config import load_yaml
+
+    cfg = load_yaml(DCAMA_TRAIN_YAML)
+    cfg.pop("other_grids")
+    p = cfg["parameters"]
+    datasets = p["dataset"]["datasets"]
+    for name in list(datasets):
+        if name.startswith("val_"):
+            del datasets[name]
+        else:
+            datasets[name].update({k: [v] for k, v in paths.items()})
+    p["train_params"]["max_epochs"] = [1]
+    p["logger"]["log_frequency"] = [1]
+    p["dataloader"].update(num_steps=[steps], num_workers=[16],
+                           possible_batch_example_nums=[[DCAMA_TUPLE]])
+    return cfg
+
+
+def step_losses(run) -> list:
+    """The loss of each of ``run``'s train steps from now on."""
+    losses, step = [], run.train_step
+
+    def recorded(*args, **kw):
+        state, aux = step(*args, **kw)
+        losses.append(aux["loss"].detach())
+        return state, aux
+
+    run.train_step = recorded
+    return losses
+
+
+def dcama_train(paths: dict) -> None:
+    """``cli run`` of DCAMA's recipe for DCAMA_STEPS SGD steps, then the
+    first step of the same batch card against CPU."""
+    from labelanything_tpu_torch.experiment import Run
+    from labelanything_tpu_torch.experiment import run as run_mod
+    from labelanything_tpu_torch.utils.config import expand_experiment
+
+    t1 = time.perf_counter()
+    out = f"{SWIN_VIT_DIR}/dcama_run"
+    params = write_params(dcama_train_config(paths), f"{out}.yaml")
+    steps, make_step = [], run_mod.make_train_step
+
+    def timed_make(**kw):
+        step = make_step(**kw)
+
+        def timed(state, batch, gt, *args, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = step(state, batch, gt, *args, **k)
+            torch.cuda.synchronize()
+            steps.append(dict(
+                images=int(np.prod(batch[BatchKeys.IMAGES].shape[:2])),
+                ms=(time.perf_counter() - t) * 1e3))
+            return result
+        return timed
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(run_mod, "make_train_step", timed_make):
+        rc = cli_main(["run", "--parameters", params, "--out-dir", out],
+                      f"{out}.out")
+    t_cli = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(rc == 0, f"dcama run: the CLI returned {rc}")
+    losses = [r["train/loss"] for r in read_jsonl(f"{out}/metrics.jsonl")
+              if "train/loss" in r]
+    check(len(steps) == DCAMA_STEPS and len(losses) == DCAMA_STEPS
+          and all(np.isfinite(losses)), f"dcama run: {len(steps)} steps, "
+          f"losses {losses}")
+
+    # the first step, card against CPU, from the card's weights
+    flat = expand_experiment(dcama_train_config(paths, 1))[0]
+    gpu = Run().init(flat, f"{SWIN_VIT_DIR}/dcama_card", device="cuda")
+    cpu = Run().init(flat, f"{SWIN_VIT_DIR}/dcama_cpu", device="cpu")
+    cpu.state.model.load_state_dict(
+        {k: v.cpu() for k, v in gpu.state.model.state_dict().items()})
+    l_gpu, l_cpu = step_losses(gpu), step_losses(cpu)
+    t2 = time.perf_counter()
+    gpu.train_epoch(0)
+    cpu.train_epoch(0)
+    t_parity = time.perf_counter() - t2
+    gpu.close()
+    cpu.close()
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    l_gpu, l_cpu = float(l_gpu[0]), float(l_cpu[0])
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    step_ms = [round(s["ms"], 1) for s in steps]
+    late = step_ms[1:]
+    print(f"dcama run: Swin-B DCAMA fp32 at 384 px, SGD, {DCAMA_STEPS} steps "
+          f"of {DCAMA_TUPLE} (" + ", ".join(str(s["images"]) for s in steps)
+          + f" images): step ms {step_ms}, {len(late) / (sum(late) / 1e3):.2f}"
+          f" steps/s after the first; the CLI call {t_cli:.1f} s; peak "
+          f"{peak:.2f} GiB; losses " + ", ".join(f"{x:.5f}" for x in losses)
+          + f"; the first step's loss card {l_gpu:.6f} / CPU {l_cpu:.6f} "
+          f"(relative {rel:.2e}, {t_parity:.1f} s)")
+    check(rel <= DCAMA_LOSS_RTOL, f"dcama parity: loss {l_gpu} / {l_cpu}")
+
+
+def phase_swin_vit_baselines() -> dict:
+    """Phase 29: DCAMA (Swin-B) and FPTrans through ``cli validate`` on the
+    card, each with a profiler pass over a set and one batch card against
+    CPU; DCAMA's SGD recipe through ``cli run``, its first step card
+    against CPU; the three golden fixtures of the original Swin, DCAMA and
+    FPTrans on the card. The path launches no kernel of the port: Swin's
+    windows (144 tokens), DCAMA's mask aggregation and FPTrans's 901 and
+    973 tokens are all outside K6's rule."""
+    import shutil
+
+    from tests.torch_golden_replay import TRANSFORMER_CASES
+
+    t0 = time.perf_counter()
+    shutil.rmtree(SWIN_VIT_DIR, ignore_errors=True)
+    roots = baseline_roots()
+    launches = {}
+    for name, path, sets, root in SWIN_VIT_FILES:
+        for k, v in baseline_file_pass(name, path, sets, roots[root],
+                                       SWIN_VIT_DIR).items():
+            launches[k] = launches.get(k, 0) + v
+    check(not nonzero(launches), f"swin / vit baselines: kernel launches "
+          f"{nonzero(launches)}")
+    print(f"swin / vit baselines: K6 launches on these paths "
+          f"{launches.get(FLASH['name'], 0)}")
+    fa.reset_launches()
+    dcama_train(roots["coco"])
+    check(not nonzero(dict(fa.LAUNCHES)), f"dcama run: kernel launches "
+          f"{nonzero(dict(fa.LAUNCHES))}")
+    replay_golden(TRANSFORMER_CASES)
+    print(f"swin / vit baselines: phase 29 took "
+          f"{time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -5124,6 +5321,8 @@ def main() -> None:
     clock("27")
     paths.append(phase_baselines())
     clock("28")
+    paths.append(phase_swin_vit_baselines())
+    clock("29")
     print(f"profiler passes made again for a lost guard: "
           f"{time_kernels.guard_overruns}")
     summary = []

@@ -103,14 +103,18 @@ def load_weights_file(path: str) -> Dict[str, torch.Tensor]:
     return dict(state)
 
 # config keys that name the architecture or the weights' origin, not a
-# builder argument
-_NOT_BUILD_ARGS = ("model_type", "name", "checkpoint", "use_sam_checkpoint")
+# builder argument; ``backbone_checkpoint`` (DCAMA's Swin-B weights, a file
+# the repository does not hold) is dropped as the JAX builder drops it
+# (ROADMAP C17)
+_NOT_BUILD_ARGS = ("model_type", "name", "checkpoint", "use_sam_checkpoint",
+                   "backbone_checkpoint")
 
 
 def build_from_config(config: Dict[str, Any]) -> torch.nn.Module:
     """Build the model a config describes: ``name`` picks an entry of the
     registry (the LAM models "lam_b", "lam_l", "lam_h", "lam_no_vit", or the
-    baselines "panet", "ppnet", "denet", "bam", "hdmnet"); without one it
+    baselines "panet", "ppnet", "denet", "bam", "hdmnet", "dcama",
+    "fptrans"); without one it
     is, like the JAX ``LabelAnything``, the no-encoder ``build_lam``."""
     args = {k: v for k, v in config.items() if k not in _NOT_BUILD_ARGS}
     name = config.get("name")

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from .affinity_decoder import AffinityDecoder
@@ -25,15 +26,38 @@ from .transformer import AffinityTransformer, TwoWayTransformer
 
 SAM_EMBED_DIM = 256
 
-_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
-           "fp32": torch.float32, "float32": torch.float32}
+# the JAX package's aliases (``labelanything_tpu/models/build_lam.py``)
+_DTYPE_ALIASES = {"bf16": "bfloat16", "fp32": "float32", "fp16": "float16",
+                  "half": "bfloat16", "float": "float32"}
+# the compute dtypes the models' kernels take
+MODEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def norm_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
-    """Accept the config's dtype strings ("bf16", "float32", ...)."""
-    if isinstance(dtype, torch.dtype):
+def norm_dtype(dtype: Union[str, torch.dtype, None]) -> Optional[torch.dtype]:
+    """The config's dtype strings as the JAX ``norm_dtype`` reads them: the
+    aliases "bf16", "half" (bfloat16), "fp32", "float" (float32) and
+    "fp16" (float16), else any numpy dtype name, case-insensitive; None
+    and dtypes pass through."""
+    if dtype is None or isinstance(dtype, torch.dtype):
         return dtype
-    return _DTYPES[dtype.lower()]
+    name = _DTYPE_ALIASES.get(dtype.lower(), dtype.lower())
+    if name == "bfloat16":      # not a numpy dtype
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros(0, np.dtype(name))).dtype
+
+
+def model_dtype(dtype: Union[str, torch.dtype, None]) -> torch.dtype:
+    """A model's compute dtype: :func:`norm_dtype`'s, float32 for None (a
+    flax module's dtype None computes in its fp32 parameters' type); any
+    dtype but float32 and bfloat16 is refused, since the kernels take
+    those two only."""
+    resolved = norm_dtype(dtype)
+    if resolved is None:
+        return torch.float32
+    if resolved not in MODEL_DTYPES:
+        raise ValueError(f"dtype {dtype!r} ({resolved}) has no route in the "
+                         f"port: the models compute in float32 or bfloat16")
+    return resolved
 
 
 def _two_way(embed_dim: int, dtype: torch.dtype, shared_keys: bool = False,
@@ -122,7 +146,7 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
             "apply_masks=True is not ported: the port's attention takes no "
             "masks, as the reference's masking is a no-op (see "
             "models.common.Attention)")
-    dtype = norm_dtype(dtype)
+    dtype = model_dtype(dtype)
     grid = image_size // vit_patch_size
 
     vit = None

@@ -1,12 +1,14 @@
 """Model registry (counterpart of ``labelanything_tpu/models/registry.py``):
-the LAM models and the ResNet / VGG baselines ported so far."""
+the LAM models and the baselines ported so far."""
 
 from __future__ import annotations
 
 from .bam import build_bam
 from .build_lam import (build_lam, build_lam_no_vit, build_lam_vit_b,
                         build_lam_vit_h, build_lam_vit_l)
+from .dcama import build_dcama
 from .denet import build_denet
+from .fptrans import build_fptrans
 from .hdmnet import build_hdmnet
 from .panet import build_panet
 from .ppnet import build_ppnet
@@ -22,4 +24,6 @@ model_registry = {
     "denet": build_denet,
     "bam": build_bam,
     "hdmnet": build_hdmnet,
+    "dcama": build_dcama,
+    "fptrans": build_fptrans,
 }

@@ -87,6 +87,20 @@ def _metrics(aux: dict, preds, gt, num_classes: Optional[int],
         aux.setdefault("confmat2", binary_confusion_matrix(preds, gt))
 
 
+def zero_missing_gradients(optimizer: torch.optim.Optimizer) -> None:
+    """Zero gradients for the optimized parameters the loss did not reach.
+    The JAX package's optimizer updates every parameter it does not mask,
+    with a zero gradient where the loss does not depend on it (a frozen
+    backbone behind a stop-gradient, an unused embedding): weight decay and
+    momentum move it, and Adam's step count is the same for every leaf.
+    ``torch.optim`` skips a parameter whose ``.grad`` is None, so the step
+    gives those parameters zeros first (ROADMAP C17)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def make_train_step(num_classes: Optional[int] = None,
                     with_confmat: bool = False) -> Callable:
     """Build the train step.
@@ -134,6 +148,7 @@ def make_train_step(num_classes: Optional[int] = None,
         (loss * loss_scale).backward()
 
         if apply_update:
+            zero_missing_gradients(state.optimizer)
             state.optimizer.step()
             state.scheduler.step()
             state.optimizer.zero_grad(set_to_none=True)

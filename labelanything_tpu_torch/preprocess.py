@@ -46,7 +46,7 @@ from .data.png import write_png
 from .data.transforms import (IMAGENET_MEAN, IMAGENET_STD, CustomResize,
                               PromptsProcessor, as_rgb, resize_uint8)
 from .models.build_encoder import ENCODERS
-from .models.build_lam import norm_dtype
+from .models.build_lam import model_dtype
 from .utils.safetensors import load_file, save_file
 from .utils.weights import init_weights
 
@@ -255,7 +255,7 @@ def preprocess_images_to_embeddings(
         os.makedirs(last_block_dir, exist_ok=True)
     with torch.device("meta"):
         encoder = ENCODERS[encoder_name](project_last_hidden=True,
-                                         dtype=norm_dtype(dtype),
+                                         dtype=model_dtype(dtype),
                                          image_size=image_size)
     encoder = encoder.to_empty(device=device).eval()
     if checkpoint:

@@ -182,7 +182,7 @@ def init_weights(module: nn.Module, seed: int = 0) -> None:
 # the baselines: JAX variables -> the reference's state-dict layout
 # --------------------------------------------------------------------- #
 
-# the inverses of the JAX package's convert_{ppnet,denet,bam,hdmnet}_state_dict
+# the inverses of the JAX package's convert_{ppnet,denet,bam,hdmnet,dcama,fptrans}_state_dict
 # (``utils/torch_import.py``): flax module paths -> the reference's names,
 # which are the port's; the wrapper's scope ("ppnet.", "denet.", "bam.",
 # "hdmnet.", or none for a bare module) is kept
@@ -260,15 +260,49 @@ _PANET_INVERSE: List[Tuple[str, str]] = [
                f"{_VGG16_CONV_INDEX[int(m.group(2))]}."),
 ]
 
+# DCAMA: the Swin-B backbone (``feature_extractor``) and the head
+# (``model``); a backbone handed to the JAX module is scoped ``backbone``
+_DCAMA_INVERSE: List[Tuple[str, str]] = [
+    (r"^backbone\.", "feature_extractor."),
+    (r"(^|\.)patch_embed\.", r"\1patch_embed.proj."),
+    (r"(^|\.)patch_norm\.", r"\1patch_embed.norm."),
+    (r"(^|\.)layers_(\d+)_blocks_(\d+)\.", r"\1layers.\2.blocks.\3."),
+    (r"(^|\.)layers_(\d+)_downsample\.", r"\1layers.\2.downsample."),
+    (r"\.mlp_fc([12])\.", r".mlp.fc\1."),
+    (r"(^|\.)dcama_block_(\d)\.q\.", r"\1DCAMA_blocks.\2.linears.0."),
+    (r"(^|\.)dcama_block_(\d)\.k\.", r"\1DCAMA_blocks.\2.linears.1."),
+    (r"(^|\.)conv(\d)_(conv|gn)(\d)\.",
+     lambda m: f"{m.group(1)}conv{m.group(2)}."
+               f"{3 * int(m.group(4)) + (m.group(3) == 'gn')}."),
+    (r"(^|\.)mixer(\d)_([01])\.",
+     lambda m: f"{m.group(1)}mixer{m.group(2)}.{2 * int(m.group(3))}."),
+]
+
+# FPTrans: the prompted encoder sits in the reference's Sequential
+# (``encoder.backbone``); ``original_encoder`` does not match the first rule
+_FPTRANS_INVERSE: List[Tuple[str, str]] = [
+    (r"(^|\.)encoder\.", r"\1encoder.backbone."),
+    (r"(^|\.)patch_embed\.", r"\1patch_embed.proj."),
+    (r"(^|\.)blocks_(\d+)\.", r"\1blocks.\2."),
+    (r"(^|\.)layers_(\d+)\.", r"\1layers.\2."),
+]
+
 BASELINE_INVERSES = {"ppnet": _RESNET_INVERSE, "denet": _DENET_INVERSE,
                      "bam": _BAM_INVERSE, "hdmnet": _HDMNET_INVERSE,
-                     "panet": _PANET_INVERSE}
+                     "panet": _PANET_INVERSE, "dcama": _DCAMA_INVERSE,
+                     "fptrans": _FPTRANS_INVERSE}
 
-# keys of the reference checkpoints that no eval path holds: PPNet's
-# training-time ASPP head, the losses' buffers (the JAX converters skip
-# them too)
-_TRAINING_ONLY = {"ppnet": ("aspp.", ".sem"), "bam": ("criterion",),
-                  "hdmnet": ("criterion",)}
+# keys of the reference checkpoints that no eval path holds (the JAX
+# converters skip them too), as patterns: PPNet's training-time ASPP head,
+# the losses' buffers; the buffers DCAMA computes (Swin's masks and index
+# tables, the head's sine tables ``pe.{i}.pe``) and Swin's classifier
+# (``norm``, ``head`` at its top); the ViTs' classifier heads
+_NOT_HELD = {"ppnet": (r"aspp\.", r"\.sem"), "bam": (r"criterion",),
+             "hdmnet": (r"criterion",),
+             "dcama": (r"attn_mask$", r"relative_position_index$",
+                       r"(^|\.)pe\.\d+\.pe$",
+                       r"^(feature_extractor\.)?(norm|head)\."),
+             "fptrans": (r"(^|\.)head\.", r"\.pre_logits\.")}
 
 
 def state_dict_from_jax_baseline(name: str, variables: Dict[str, Any]
@@ -281,7 +315,11 @@ def state_dict_from_jax_baseline(name: str, variables: Dict[str, Any]
     conv kernels (kh, kw, in, out) to (out, in, kh, kw), dense kernels
     transposed, ``scale`` to ``weight``, BatchNorm's ``mean`` / ``var`` to
     ``running_mean`` / ``running_var`` with a ``num_batches_tracked`` of 0.
-    DENet's class bank ``weight`` is kept as it is."""
+    DENet's class bank ``weight`` is kept as it is; Swin's
+    ``relative_position_bias_table`` and FPTrans's ``cls_token``,
+    ``pos_embed`` and ``prompt_tokens`` too. A transposed convolution's
+    kernel (FPTrans's purifier, (kh, kw, out, in)) takes the convolutions'
+    transpose to torch's (in, out, kh, kw), as the JAX converter's."""
     renames = BASELINE_INVERSES[name]
     out: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
@@ -311,14 +349,14 @@ def reference_baseline_state_dict(name: str, state: Dict[str, Any]
                                   ) -> Dict[str, torch.Tensor]:
     """A reference baseline checkpoint (numpy or tensors) as the port's
     model of ``name`` loads it with ``strict=True``: a ``module.`` prefix
-    dropped, and the training-only keys that no eval path holds (PPNet's
-    ``aspp.*`` head, the losses' buffers), as the JAX converters drop
-    them."""
-    skip = _TRAINING_ONLY.get(name, ())
+    dropped, and the keys that no eval path holds (PPNet's ``aspp.*`` head,
+    the losses' buffers, the tables DCAMA computes, Swin's and the ViTs'
+    classifiers: :data:`_NOT_HELD`), as the JAX converters drop them."""
+    skip = _NOT_HELD.get(name, ())
     out = {}
     for key, value in state.items():
         key = key[len("module."):] if key.startswith("module.") else key
-        if any(s in key for s in skip):
+        if any(re.search(s, key) for s in skip):
             continue
         out[key] = (value if isinstance(value, torch.Tensor)
                     else torch.from_numpy(np.array(value)))

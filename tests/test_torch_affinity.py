@@ -25,6 +25,8 @@ from labelanything_tpu_torch.api import LabelAnything, build_from_config
 from labelanything_tpu_torch.models.affinity_decoder import AffinityDecoder
 from labelanything_tpu_torch.ops import attention
 from labelanything_tpu_torch.ops import flash_attention as fa
+from tests.test_torch_baselines import jax_init
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-3, atol=5e-4)
 CUDA = torch.device("cuda")
@@ -79,17 +81,7 @@ def test_flash_gradients_match_jax():
                                    atol=2e-5)
 
 
-@pytest.fixture
-def one_thread():
-    """``gradcheck`` is many tiny ops; on one thread they do not contend
-    with the other test workers' threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-def test_flash_function_gradcheck(one_thread):
+def test_flash_function_gradcheck():
     gen = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(shape, generator=gen, dtype=torch.float64,
                            requires_grad=True)
@@ -157,8 +149,7 @@ def _episode(image_size=96, embed_dim=48, num_examples=2, num_classes=3,
 
 def _jax_model(config, batch):
     jm = jbl.build_lam_no_vit(**config)
-    params = jax.jit(jm.init)(jax.random.key(0),
-                              jax.tree.map(jnp.asarray, batch))
+    params = jax_init(jm, jax.tree.map(jnp.asarray, batch))
     return jm, params
 
 

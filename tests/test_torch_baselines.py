@@ -24,6 +24,8 @@ original's golden outputs, on the CPU:
   a ``checkpoint``, which the JAX builders do not take.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -48,6 +50,7 @@ from labelanything_tpu_torch.utils.weights import (
     reference_baseline_state_dict, state_dict_from_jax_baseline)
 from tests.golden import CASES, fill_state_dict
 from tests.torch_golden_replay import BASELINE_CASES, replay_baseline
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-3, atol=5e-4)
 TINY = (1, 1, 1, 2)
@@ -163,6 +166,63 @@ def jax_variables(model, batch: dict, seed: int = 0) -> dict:
     ``jax.eval_shape`` (compiling ``init`` costs more than the forward)."""
     return seeded_variables(
         jax.eval_shape(model.init, jax.random.key(seed), batch), seed)
+
+
+# leaves that flax's initializers start at 0, at 1, and at a unit normal
+_ZEROS = ("bias", "mean", "rel_pos_h", "rel_pos_w")
+_ONES = ("scale", "var", "weight")
+_UNIT = ("positional_encoding_gaussian_matrix", "embeddings",
+         "point_embeddings", "not_a_point_embed", "no_mask_embed",
+         "not_a_mask_embed", "no_sparse_embedding")
+
+
+def flax_like_variables(shapes, seed: int = 0) -> dict:
+    """Numpy values for a tree of JAX variable shapes as flax's default
+    initializers lay them out, from a seeded generator: biases and
+    BatchNorm means 0, norm scales and variances 1, the embeddings drawn
+    from a unit normal, kernels and the rest normal over sqrt(fan in).
+    What ``init`` gives in distribution, without compiling it."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name in _ZEROS:
+            return np.zeros(leaf.shape, np.float32)
+        if name in _ONES:
+            return np.ones(leaf.shape, np.float32)
+        n = rng.standard_normal(leaf.shape).astype(np.float32)
+        if name in _UNIT:
+            return n
+        if name == "pos_embedding":
+            return np.float32(0.02) * n
+        fan_in = int(np.prod(leaf.shape[:-1])) if name == "kernel" \
+            else leaf.shape[-1]
+        return n / np.float32(np.sqrt(fan_in))
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def jax_init(model, *args, seed: int = 0) -> dict:
+    """:func:`flax_like_variables` of ``model.init``'s tree, its shapes by
+    ``jax.eval_shape``: what ``jax.jit(model.init)`` gives in
+    distribution, without compiling the forward pass that ``init`` runs."""
+    return flax_like_variables(
+        jax.eval_shape(model.init, jax.random.key(seed), *args), seed)
+
+
+def seed_jax_init(monkeypatch, module_cls, seed: int = 0,
+                  fill=flax_like_variables) -> None:
+    """Make ``module_cls.init`` (a flax module class) return ``fill`` of
+    the shapes ``jax.eval_shape`` gives, for the rest of the test: the JAX
+    ``Run`` initializes its model through ``init`` under ``jit``, whose
+    compile costs more than the steps'."""
+    model_init = module_cls.init
+
+    def seeded_init(self, rng, *args, **kwargs):
+        return fill(jax.eval_shape(functools.partial(model_init, self), rng,
+                                   *args, **kwargs), seed)
+
+    monkeypatch.setattr(module_cls, "init", seeded_init)
 
 
 def seeded_variables(shapes, seed: int = 0) -> dict:

@@ -8,6 +8,7 @@ ResNets at 65 px, logits within rtol 1e-3, atol 5e-4."""
 import pytest
 
 from tests.test_torch_baselines import compare_with_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["bam", "hdmnet"])

@@ -36,6 +36,7 @@ from labelanything_tpu_torch.utils.weights import state_dict_from_jax_baseline
 from tests.test_torch_baselines import seeded_variables
 from tests.test_torch_data import JaxSamplerEpisodeTypesWhole
 from tests.test_torch_images import image_root  # noqa: F401 (fixture)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 BASELINE_FILES = sorted(

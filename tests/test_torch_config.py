@@ -13,6 +13,7 @@ import yaml
 
 from labelanything_tpu.utils import config as jconfig
 from labelanything_tpu_torch.utils import config, yaml_subset
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PARAMETER_FILES = sorted(

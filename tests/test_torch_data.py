@@ -25,6 +25,7 @@ from labelanything_tpu_torch.data import transforms as ttf
 from labelanything_tpu_torch.data.synthetic_coco import (COCO_CATEGORY_IDS,
                                                          write_synthetic_coco)
 from labelanything_tpu_torch.utils.config import load_yaml
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 EPISODE_TYPES = BatchMetadataKeys.PROMPT_TYPES

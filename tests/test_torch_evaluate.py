@@ -29,6 +29,7 @@ from labelanything_tpu.data import coco as jcoco
 from labelanything_tpu.data import test as jtest
 from labelanything_tpu.experiment import evaluate as jeval
 from labelanything_tpu.experiment import run as jrun
+from labelanything_tpu.models import lam as jlam
 from labelanything_tpu.parallel import mesh as jmesh
 from labelanything_tpu.train import checkpoint as jckpt
 from labelanything_tpu.train import metrics as jmetrics
@@ -47,8 +48,10 @@ from labelanything_tpu_torch.utils import yaml_subset
 from labelanything_tpu_torch.utils.config import expand_experiment, load_yaml
 from labelanything_tpu_torch.utils.safetensors import save_file
 from labelanything_tpu_torch.utils.weights import state_dict_from_jax
+from tests.test_torch_baselines import seed_jax_init
 from tests.test_torch_data import JaxSamplerEpisodeTypesWhole
 from tests.test_torch_run import METRIC_ATOL
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SETS = ("val_coco20i_N1K1", "val_coco20i_N2K1")
@@ -97,6 +100,7 @@ def jax_side(monkeypatch, coco_root):
                         JaxSamplerEpisodeTypesWhole)
     monkeypatch.setattr(jcoco.CocoLVISDataset, "instances_path",
                         coco_root["instances_path"], raising=False)
+    seed_jax_init(monkeypatch, jlam.Lam)
 
 
 def _jax_state(flat, run_dir):
@@ -219,17 +223,30 @@ def _evaluate(path, checkpoint, out, **kw):
                                      folds=[0], reruns=1, device="cpu", **kw)
 
 
+@pytest.fixture(scope="module")
+def pretrained_metrics(port_flat, tmp_path_factory):
+    """(the model's ``save_pretrained`` directory, the metrics it gives),
+    made once for every checkpoint kind."""
+    path, _, la = port_flat
+    ref_dir = tmp_path_factory.mktemp("pretrained")
+    la.save_pretrained(str(ref_dir))
+    return ref_dir, _evaluate(path, str(ref_dir),
+                              tmp_path_factory.mktemp("ref"))
+
+
 @pytest.mark.parametrize("kind", ["save_pretrained", "tag_dir", "safetensors",
                                   "pth", "bin"])
-def test_every_checkpoint_kind_gives_the_same_metrics(port_flat, tmp_path,
-                                                      kind):
+def test_every_checkpoint_kind_gives_the_same_metrics(
+        port_flat, pretrained_metrics, tmp_path, kind):
     """The same weights as a ``save_pretrained`` directory, a run's tag
     directory, and bare ``.safetensors`` / ``.pth`` / ``.bin`` files in the
     reference's names: each loads into the fold's model bit for bit and
     gives the metrics of the ``save_pretrained`` directory."""
     path, flat, la = port_flat
-    ref_dir = tmp_path / "pretrained"
-    la.save_pretrained(str(ref_dir))
+    ref_dir, ref = pretrained_metrics
+    if kind == "save_pretrained":     # a second directory, evaluated anew
+        ref_dir = tmp_path / "pretrained"
+        la.save_pretrained(str(ref_dir))
     sd = la.model.state_dict()
     if kind == "save_pretrained":
         ckpt = ref_dir
@@ -257,7 +274,6 @@ def test_every_checkpoint_kind_gives_the_same_metrics(port_flat, tmp_path,
         got = _evaluate(path, str(ckpt), tmp_path / "out")
     for name, value in sd.items():
         assert torch.equal(loaded[name], value), name
-    ref = _evaluate(path, str(ref_dir), tmp_path / "ref")
     assert got == ref and "fold0/miou" in got
 
 

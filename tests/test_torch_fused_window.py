@@ -35,7 +35,9 @@ from labelanything_tpu_torch.ops import flash_attention as fa
 from labelanything_tpu_torch.ops import fused_window as fw
 from labelanything_tpu_torch.utils.weights import (init_weights,
                                                    state_dict_from_jax)
+from tests.test_torch_baselines import jax_init
 from tests.test_torch_image_encoder import TOY_VIT, nonzero_rel_pos
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-3, atol=5e-4)   # tests/golden.py:165
 
@@ -128,8 +130,7 @@ ENCODERS = [
 def _jax_encoder(config, x, noisy):
     jm = jie.ImageEncoderViT(use_rel_pos=True, project_last_hidden=True,
                              **config)
-    params = nonzero_rel_pos(jax.jit(jm.init)(jax.random.key(0),
-                                              jnp.asarray(x)))
+    params = nonzero_rel_pos(jax_init(jm, jnp.asarray(x)))
     if noisy:
         params = _noisy(params)
     return jm, params

@@ -20,6 +20,8 @@ from labelanything_tpu_torch.models import image_encoder as tie
 from labelanything_tpu_torch.models.build_encoder import build_vit_b
 from labelanything_tpu_torch.utils.weights import state_dict_from_jax
 from tests.golden import CASES, load_fixture, make_weights
+from tests.test_torch_baselines import jax_init
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOY_VIT = dict(img_size=128, patch_size=16, embed_dim=128, depth=2,
                num_heads=2, window_size=3, global_attn_indexes=(1,),
@@ -66,8 +68,7 @@ def test_image_encoder_matches_jax(neck):
         np.float32)
     jm = jie.ImageEncoderViT(use_rel_pos=True, project_last_hidden=neck,
                              **TOY_VIT)
-    params = nonzero_rel_pos(jax.jit(jm.init)(jax.random.key(0),
-                                              jnp.asarray(x)))
+    params = nonzero_rel_pos(jax_init(jm, jnp.asarray(x)))
     ref = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
 
     tm = tie.ImageEncoderViT(project_last_hidden=neck, **TOY_VIT)

@@ -64,6 +64,7 @@ from tests.test_torch_data import (JaxSamplerEpisodeTypesWhole,
                                    assert_batches_equal, first_batches)
 from tests.test_torch_image_encoder import TOY_VIT
 from tests.test_torch_run import read_metrics
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-3, atol=5e-4)

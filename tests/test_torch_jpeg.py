@@ -17,6 +17,7 @@ import pytest
 from PIL import Image
 
 from labelanything_tpu_torch.data import jpeg, native, png, transforms
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "images")
 RECORD = json.load(open(os.path.join(FIXTURES, "pil_decoded.json")))

@@ -12,6 +12,7 @@ import torch
 
 from labelanything_tpu_torch.ops import flash_attention as fa
 from labelanything_tpu_torch.ops import time_kernels as tk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

@@ -34,7 +34,9 @@ from labelanything_tpu_torch.models.prompt_encoder import (
 from labelanything_tpu_torch.models.transformer import TwoWayTransformer
 from labelanything_tpu_torch.utils.weights import state_dict_from_jax
 from tests.golden import CASES, load_fixture, make_weights
+from tests.test_torch_baselines import jax_init
 from tests.test_torch_image_encoder import TOY_VIT, nonzero_rel_pos
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-3, atol=5e-4)   # tests/golden.py:165
 TOY_LAM = dict(use_vit_sam_neck=False, image_embed_dim=128, embed_dim=64,
@@ -81,7 +83,7 @@ def _port_vit(project_last_hidden, image_size, dtype):
 def models():
     jm = jbl._build_lam(build_vit=_jax_vit, **TOY_LAM)
     batch = jax.tree.map(jnp.asarray, _episode())
-    params = nonzero_rel_pos(jax.jit(jm.init)(jax.random.key(0), batch))
+    params = nonzero_rel_pos(jax_init(jm, batch))
     tm = tbl._build_lam(build_vit=_port_vit, **TOY_LAM).eval()
     tm.load_state_dict(state_dict_from_jax(params), strict=True)
     return jm, params, tm

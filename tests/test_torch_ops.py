@@ -30,6 +30,7 @@ from labelanything_tpu_torch.ops import flash_attention as tfa
 from labelanything_tpu_torch.ops.attention import dot_product_attention
 from labelanything_tpu_torch.ops.image_norm import maybe_normalize_images
 from labelanything_tpu_torch.ops.resize import resize_bilinear
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -125,20 +126,9 @@ def test_relpos_plain_backward_matches_jax(kind, b, grid_hw, heads):
                                    atol=2e-4)
 
 
-@pytest.fixture
-def one_thread():
-    """``gradcheck`` is thousands of tiny ops: with torch's default thread
-    count they spend their time contending with the other test workers'
-    threads (minutes instead of seconds), so it runs on one thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.mark.parametrize("kernel,grid_hw", [("relpos_global", (3, 4)),
                                             ("relpos_window", (2, 3))])
-def test_relpos_autograd_function(kernel, grid_hw, one_thread):
+def test_relpos_autograd_function(kernel, grid_hw):
     """``RelposAttention`` on the CPU route: ``gradcheck`` in fp64, and in
     fp32 the same gradients as autograd of the plain forward (1e-5: one
     takes the explicit formulas, the other PyTorch's)."""

@@ -32,6 +32,7 @@ from labelanything_tpu_torch.utils.config import expand_experiment, load_yaml
 from labelanything_tpu_torch.utils.safetensors import load_file, save_file
 from tests.test_torch_data import (JaxSamplerEpisodeTypesWhole,
                                    assert_batches_equal)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 IMAGE_SIZE = 64

@@ -17,6 +17,7 @@ import pytest
 from PIL import Image
 
 from labelanything_tpu_torch.data import png
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(1, 1), (1, 7), (5, 1), (13, 31), (40, 33), (64, 65)]
 

@@ -6,6 +6,7 @@ that the two JAX runs can go to two test workers."""
 import pytest
 
 from tests.test_torch_run import check_run_matches_jax, coco_root  # noqa: F401
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("substitute", [True])

@@ -17,6 +17,7 @@ from PIL import Image
 
 from labelanything_tpu_torch.data import tiff
 from tests.make_image_fixtures import tiff_bytes
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "images")
 RECORD = json.load(open(os.path.join(FIXTURES, "pil_decoded.json")))

@@ -33,6 +33,7 @@ from labelanything_tpu.train import optim as jo
 from labelanything_tpu.train import substitutor as js
 from labelanything_tpu.typing import BatchKeys, IGNORE_INDEX, ResultDict
 from labelanything_tpu_torch.data.synthetic import random_full_batch
+from labelanything_tpu_torch.experiment.run import drop_absent_modalities
 from labelanything_tpu_torch.models import build_lam as tbl
 from labelanything_tpu_torch.models.image_encoder import ImageEncoderViT as TViT
 from labelanything_tpu_torch.models.prompt_encoder import RandomMatrixEncoder
@@ -43,8 +44,11 @@ from labelanything_tpu_torch.train import losses as tl
 from labelanything_tpu_torch.train import metrics as tm
 from labelanything_tpu_torch.train import optim as to
 from labelanything_tpu_torch.train import substitutor as ts
-from labelanything_tpu_torch.utils.weights import state_dict_from_jax
+from labelanything_tpu_torch.utils.weights import (init_weights,
+                                                  state_dict_from_jax)
+from tests.test_torch_baselines import jax_init
 from tests.test_torch_image_encoder import nonzero_rel_pos
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOY_VIT = dict(img_size=64, patch_size=16, embed_dim=128, depth=2,
                num_heads=2, window_size=3, global_attn_indexes=(1,),
@@ -281,6 +285,80 @@ def _get(tree, path):
     for part in path:
         tree = tree[part]
     return tree
+
+
+def test_unreached_parameters_step_as_in_optax():
+    """Two AdamW steps of the port's train step on a toy ``lam_no_vit``
+    (weight decay 0.1): the first batch has mask prompts alone, so the
+    point embeddings get no gradient until the second, which has every
+    prompt kind; ``no_mask_embed`` and the prompt encoder's final attention
+    get none in either. optax updates every leaf, with zeros where the loss
+    does not reach: the port's parameters after both steps equal the JAX
+    package's AdamW on the same gradients (None as zeros) to 5e-7, at lr
+    1e-2 (a skipped leaf's first Adam step would be 0.26 lr off the second
+    one's, and a leaf never reached would not decay)."""
+    model = tbl._build_lam(build_vit=None, use_vit=False, **dict(
+        TOY_LAM, image_embed_dim=32))
+    init_weights(model, seed=3)
+    loss = tl.LabelAnythingLoss({"focal": {"weight": 1.0}},
+                                class_weighting=True)
+    state = init_train_state(model, loss, "cpu", learning_rate=1e-2,
+                             name="AdamW", weight_decay=0.1)
+    named = dict(model.named_parameters())
+    start = {k: p.detach().numpy().copy() for k, p in named.items()}
+    step = make_train_step()
+    all_grads = []
+    for kinds in (("masks",), ("points", "boxes", "masks")):
+        full = random_full_batch(batch_size=2, num_examples=2, num_classes=2,
+                                 image_size=64, embed_dim=32, seed=5)
+        for kind, flag in (("points", BatchKeys.FLAG_POINTS),
+                           ("boxes", BatchKeys.FLAG_BBOXES)):
+            if kind not in kinds:
+                full[flag] = np.zeros_like(full[flag])
+        sub = ts.Substitutor(num_points=1, substitute=False)
+        sub.reset(_t(full))
+        batch, gt = next(sub)
+        batch = drop_absent_modalities(batch)
+        step(state, batch, gt, torch.Generator().manual_seed(0), 1.0,
+             apply_update=False)
+        all_grads.append({k: None if p.grad is None else p.grad.numpy().copy()
+                          for k, p in named.items()})
+        step(state, batch, gt, torch.Generator().manual_seed(0), 1.0,
+             apply_update=True, use_accum=False)
+    first, second = all_grads
+    late = "prompt_encoder.point_embeddings.0.weight"
+    never = "prompt_encoder.no_mask_embed.weight"
+    assert first[late] is None and second[late] is not None
+    assert first[never] is None and second[never] is None
+
+    tree = {}
+    for key, value in start.items():
+        node = tree
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = jnp.asarray(value)
+    jparams = {"model": tree, "loss": {}}
+    tx = jo.build_optimizer(jparams, name="AdamW", learning_rate=1e-2,
+                            weight_decay=0.1)
+    opt_state = tx.init(jparams)
+    for grads in all_grads:
+        jgrads = jax.tree.map(jnp.zeros_like, jparams)
+        for key, g in grads.items():
+            if g is not None:
+                node = jgrads["model"]
+                parts = key.split(".")
+                for part in parts[:-1]:
+                    node = node[part]
+                node[parts[-1]] = jnp.asarray(g)
+        updates, opt_state = tx.update(jgrads, opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+    for key, param in named.items():
+        ref = np.asarray(_get(jparams["model"], key.split(".")))
+        np.testing.assert_allclose(param.detach().numpy(), ref, rtol=0,
+                                   atol=5e-7, err_msg=key)
+    for key in (late, never):
+        assert not np.array_equal(named[key].detach().numpy(), start[key])
 
 
 # ---- metrics ----------------------------------------------------------------
@@ -542,8 +620,7 @@ def jax_run():
     model = jbl._build_lam(build_vit=_jax_vit, **TOY_LAM)
     loss = jl.LabelAnythingLoss(components={"focal": {"weight": 1.0}},
                                 class_weighting=True)
-    params = {"model": nonzero_rel_pos(
-        jax.jit(model.init)(jax.random.key(0), jbatch)), "loss": {}}
+    params = {"model": nonzero_rel_pos(jax_init(model, jbatch)), "loss": {}}
     params0 = _np_tree(params)
     tx = jo.build_optimizer(params, name="AdamW", learning_rate=LR)
     step = jts.make_train_step(model, loss, tx)

@@ -32,6 +32,8 @@ from labelanything_tpu_torch.ops import flash_attention as fa
 from labelanything_tpu_torch.ops import fused_twoway as ft
 from labelanything_tpu_torch.ops.twoway_shared import twoway_shared
 from labelanything_tpu_torch.utils.weights import state_dict_from_jax
+from tests.test_torch_baselines import jax_init
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, H, W, D, N, HEADS, MLP = 3, 10, 10, 64, 12, 4, 256
 ATOL = 3e-5     # tests/test_fused_twoway.py's own bound, fp32
@@ -62,7 +64,8 @@ def setup():
     tok = (0.5 * rng.standard_normal((B, N, D))).astype(np.float32)
     jtr = JTwoWay(depth=2, embedding_dim=D, num_heads=HEADS, mlp_dim=MLP)
     with _jax_modes():
-        params = jtr.init(jax.random.key(0), *map(jnp.asarray, (img, pe, tok)))
+        params = jax.eval_shape(jtr.init, jax.random.key(0),
+                                *map(jnp.asarray, (img, pe, tok)))
     flat = flax.traverse_util.flatten_dict(params["params"])
     r2 = np.random.default_rng(1)
     flat = {k: jnp.asarray(0.2 * r2.standard_normal(v.shape), v.dtype)
@@ -162,18 +165,7 @@ def test_module_routes_through_fused_function(setup, monkeypatch):
 
 # (d) the autograd function in float64
 
-@pytest.fixture
-def one_thread():
-    """``gradcheck`` is thousands of tiny ops: with torch's default thread
-    count they spend their time contending with the other test workers'
-    threads (minutes instead of seconds), so it runs on one thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-def test_fused_function_gradcheck(one_thread):
+def test_fused_function_gradcheck():
     torch.manual_seed(0)
     d, heads, mlp, s, n, g = 8, 2, 16, 4, 2, 2
     tr = TwoWayTransformer(1, d, heads, mlp).double()
@@ -378,7 +370,7 @@ def _episode(include_masks):
 def decode_models():
     jm = jbl.build_lam_no_vit(**TOY)
     batch = jax.tree.map(jnp.asarray, _episode(True))
-    params = jax.jit(jm.init)(jax.random.key(0), batch)
+    params = jax_init(jm, batch)
     return jm, params
 
 

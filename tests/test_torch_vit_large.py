@@ -6,10 +6,10 @@ plain twin; it is held against the JAX Pallas kernel in interpret mode (256-
 row blocks, as the JAX package's own tests run it) and against the JAX plain
 reference ``_packed_xla_ref``. The encoder, the serving slice and one train
 step are held against the JAX modules at a toy ViT-H shape: 112 px (a 7 x 7
-grid), embed 160 with 2 heads of 80, 4 blocks with blocks 1 and 3 global,
-window 3 (windows pad 7 -> 9). Inputs come from seeded numpy arrays fed to
-both sides; JAX initializes the weights, the relative-position tables are
-then filled with nonzero values.
+grid), embed 160 with 2 heads of 80, 2 blocks, block 0 windowed and block
+1 global, window 3 (windows pad 7 -> 9). Inputs come from seeded numpy
+arrays fed to both sides; the weights are seeded fills of the JAX init's
+tree (``jax.eval_shape``), the relative-position tables nonzero.
 """
 
 import functools
@@ -43,14 +43,16 @@ from labelanything_tpu_torch.train import losses as tl
 from labelanything_tpu_torch.train.substitutor import Substitutor
 from labelanything_tpu_torch.utils.weights import (init_weights,
                                                    state_dict_from_jax)
+from tests.test_torch_baselines import jax_init
 from tests.test_torch_image_encoder import nonzero_rel_pos
 from tests.test_torch_lam import _assert_logits_close, _support, _t
 from tests.test_torch_ops import _pallas_interpret
 from tests.test_torch_train import _assert_adamw_close
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-3, atol=5e-4)   # tests/golden.py:165
-TOY_VIT_H = dict(img_size=112, patch_size=16, embed_dim=160, depth=4,
-                 num_heads=2, window_size=3, global_attn_indexes=(1, 3),
+TOY_VIT_H = dict(img_size=112, patch_size=16, embed_dim=160, depth=2,
+                 num_heads=2, window_size=3, global_attn_indexes=(1,),
                  out_chans=32)
 TOY_LAM_H = dict(use_vit_sam_neck=False, image_embed_dim=160, embed_dim=64,
                  image_size=112, spatial_convs=3, class_attention=False,
@@ -125,18 +127,7 @@ def test_packed_plain_backward_matches_jax(b, grid_hw, heads, dh):
                                    atol=2e-5)
 
 
-@pytest.fixture
-def one_thread():
-    """``gradcheck`` is thousands of tiny ops: with torch's default thread
-    count they spend their time contending with the other test workers'
-    threads (minutes instead of seconds), so it runs on one thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-def test_packed_autograd_function(one_thread):
+def test_packed_autograd_function():
     """``gradcheck`` in fp64 on a tiny case, and in fp32 the same gradients
     as autograd through the plain forward (1e-5: explicit formulas against
     PyTorch's), with a strided cotangent."""
@@ -321,8 +312,7 @@ def test_image_encoder_matches_jax_at_head_width_80(neck, window):
     x = np.random.default_rng(2).standard_normal((2, 112, 112, 3)).astype(
         np.float32)
     jm = _jax_vit_h(neck, window_size=window)
-    params = nonzero_rel_pos(jax.jit(jm.init)(jax.random.key(0),
-                                              jnp.asarray(x)))
+    params = nonzero_rel_pos(jax_init(jm, jnp.asarray(x)))
     ref = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
     tm = _port_vit_h(neck, window_size=window)
     tm.load_state_dict(state_dict_from_jax(params), strict=True)
@@ -384,7 +374,7 @@ def test_vit_large_layouts_match_jax(name, embed, depth, heads, global_at):
 
 def test_registry_covers_the_large_encoders(monkeypatch):
     assert {"lam", "lam_no_vit", "lam_b", "lam_l", "lam_h", "panet", "ppnet",
-            "denet", "bam", "hdmnet"} == set(model_registry)
+            "denet", "bam", "hdmnet", "dcama", "fptrans"} == set(model_registry)
     assert sorted(tbe.ENCODERS) == ["vit_b", "vit_h", "vit_l"]
     for name, factory in (("lam_l", "build_vit_l"), ("lam_h", "build_vit_h")):
         seen = {}
@@ -431,7 +421,7 @@ def _episode_h():
 def lam_h():
     jm = jbl._build_lam(build_vit=_jax_vit_h, **TOY_LAM_H)
     batch = jax.tree.map(jnp.asarray, _episode_h())
-    params = nonzero_rel_pos(jax.jit(jm.init)(jax.random.key(0), batch))
+    params = nonzero_rel_pos(jax_init(jm, batch))
     tm = tbl._build_lam(build_vit=_port_vit_h, **TOY_LAM_H).eval()
     tm.load_state_dict(state_dict_from_jax(params), strict=True)
     return jm, params, tm
@@ -491,8 +481,7 @@ def test_lam_h_train_step_matches_jax(monkeypatch):
     model = jbl._build_lam(build_vit=_jax_vit_h, **TOY_LAM_H)
     loss = jl.LabelAnythingLoss(components={"focal": {"weight": 1.0}},
                                 class_weighting=True)
-    params = {"model": nonzero_rel_pos(
-        jax.jit(model.init)(jax.random.key(0), jbatch)), "loss": {}}
+    params = {"model": nonzero_rel_pos(jax_init(model, jbatch)), "loss": {}}
     params0 = jax.tree.map(np.asarray, params)
     tx = jo.build_optimizer(params, name="AdamW", learning_rate=LR)
     step = jts.make_train_step(model, loss, tx)
@@ -532,7 +521,7 @@ def test_lam_h_train_step_matches_jax(monkeypatch):
                                    atol=1e-3 * np.abs(ref).max() + 1e-8,
                                    err_msg=key)
         grads[key] = 2.0 * torch.as_tensor(ref)
-    for block in range(4):                       # fed by dr alone
+    for block in range(TOY_VIT_H["depth"]):      # fed by dr alone
         for name in ("rel_pos_h", "rel_pos_w"):
             key = f"image_encoder.blocks.{block}.attn.{name}"
             assert np.abs(ref_grads[key].numpy()).max() > 0, key

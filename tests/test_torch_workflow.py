@@ -39,7 +39,9 @@ from labelanything_tpu_torch.train.checkpoint import (CheckpointManager,
 from labelanything_tpu_torch.typing import BatchKeys, ResultDict
 from labelanything_tpu_torch.utils import safetensors as st
 from labelanything_tpu_torch.utils.weights import init_weights
+from tests.test_torch_baselines import jax_init
 from tests.test_torch_train_embeddings import TOY_FLAGSHIP, episode
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-3, atol=5e-4)
 
@@ -204,11 +206,11 @@ def test_images_from_directory(tmp_path):
 @pytest.fixture(scope="module")
 def jax_model():
     """The toy flagship ``lam_no_vit`` in the JAX ``LabelAnything``, its
-    weights from the JAX init, and an episode."""
+    weights seeded fills of the JAX init's tree, and an episode."""
     batch = random_batch(batch_size=2, num_examples=1, num_classes=3,
                          image_size=64, embed_dim=48, seed=6)
     la = japi.LabelAnything(dict(TOY_FLAGSHIP))
-    la.init_params(jax.tree.map(jnp.asarray, batch))
+    la.params = jax_init(la.model, jax.tree.map(jnp.asarray, batch))
     return la, batch
 
 

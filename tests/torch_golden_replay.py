@@ -5,13 +5,18 @@ parameters/trainval/coco20i/mae.yaml) and ``sam_released_full_forward``
 (``lam_b``: SAM ViT-B at 1024 px, embed 512) hold the original PyTorch
 LabelAnything's outputs for reference-layout weights made from a seed
 (``tests/golden.py``); ``ppnet_full``, ``denet_2way_2shot``, ``bam_1shot``
-and ``hdmnet_1shot`` the original baselines' (``tests/golden_baselines.py``:
-PPNet on a (1, 1, 1, 2) ResNet, DENet on an 8 x 8 stride-8 conv for a
-backbone, BAM and HDMNet on the full ResNet-50, all at 64 or 65 px). This
-module imports torch, numpy and ``tests.golden`` only, so the replays run
-where JAX is absent too: ``tests/test_torch_lam.py`` and
-``tests/test_torch_baselines.py`` run them on the CPU and ``chip_smoke.py``
-on the card.
+and ``hdmnet_1shot`` the original baselines'
+(``tests/golden_baselines.py``: PPNet on a (1, 1, 1, 2) ResNet, DENet on
+an 8 x 8 stride-8 conv for a backbone, BAM and HDMNet on the full
+ResNet-50, all at 64 or 65 px), and ``swin_features``,
+``dcama_head_2shot`` and ``fptrans_1shot`` those of a small Swin (64 px,
+window 4, widths 16 to 128), DCAMA's head on features of those widths and
+a two-block FPTrans 32 wide (its FPS seeded at the first valid pixel).
+This module imports torch, numpy and ``tests.golden`` only, so the replays
+run where JAX is absent too: ``tests/test_torch_lam.py``,
+``tests/test_torch_baselines.py``, ``test_torch_dcama.py`` and
+``test_torch_fptrans.py`` run them on the CPU and ``chip_smoke.py`` on the
+card.
 """
 
 from __future__ import annotations
@@ -24,9 +29,12 @@ import torch
 from labelanything_tpu_torch.models.build_lam import (build_lam_no_vit,
                                                       build_lam_vit_b)
 from labelanything_tpu_torch.models.bam import BAM
+from labelanything_tpu_torch.models.dcama import DCAMAModel
 from labelanything_tpu_torch.models.denet import DENet
+from labelanything_tpu_torch.models.fptrans import FPTrans
 from labelanything_tpu_torch.models.hdmnet import HDMNet
 from labelanything_tpu_torch.models.ppnet import PPNet
+from labelanything_tpu_torch.models.swin import SwinTransformer
 from labelanything_tpu_torch.typing import BatchKeys, ResultDict
 from labelanything_tpu_torch.utils.weights import reference_baseline_state_dict
 from tests.golden import C_BANK, C_EMBED, C_IMG, C_IMG_EMBED, CASES, \
@@ -85,6 +93,7 @@ def replay(name: str, device="cpu", **options
 
 BASELINE_CASES = ("ppnet_full", "denet_2way_2shot", "bam_1shot",
                   "hdmnet_1shot")
+TRANSFORMER_CASES = ("swin_features", "dcama_head_2shot", "fptrans_1shot")
 
 
 class _TinyBackbone(torch.nn.Module):
@@ -101,7 +110,8 @@ class _TinyBackbone(torch.nn.Module):
 
 def _baseline(name: str):
     """(the bare module of a baseline case, its state-dict kind, the case's
-    inputs as NCHW arrays in the module's argument order)."""
+    inputs in the module's argument order: NCHW arrays for the ResNet /
+    VGG models, channels-last for Swin, DCAMA and FPTrans)."""
     case = CASES[name]
     if name == "ppnet_full":
         sup, qry, fore = case._inputs()
@@ -117,7 +127,31 @@ def _baseline(name: str):
         return model, "denet", case._inputs()
     if name == "bam_1shot":
         return BAM(shot=case.shot, base_classes=60), "bam", case._inputs()
-    return HDMNet(shot=case.shot, base_classes=60), "hdmnet", case._inputs()
+    if name == "hdmnet_1shot":
+        return (HDMNet(shot=case.shot, base_classes=60), "hdmnet",
+                case._inputs())
+    if name == "swin_features":
+        model = SwinTransformer(img_size=64, patch_size=4, window_size=4,
+                                embed_dim=16, depths=(1, 2, 2, 1),
+                                num_heads=(1, 2, 2, 4))
+        return model, "dcama", (case._inputs().transpose(0, 2, 3, 1),)
+    if name == "dcama_head_2shot":
+        qf, sf, mask = case._inputs()
+        nhwc = lambda a: a.transpose(0, 2, 3, 1)
+        support = [np.stack([nhwc(shot[i]) for shot in sf], axis=1)
+                   for i in range(len(qf))]
+        return (DCAMAModel(in_channels=case.in_ch, stack_ids=case.stack_ids),
+                "dcama", ([nhwc(q) for q in qf], support, mask))
+    model = FPTrans(image_size=64, embed_dim=32, depth=2, num_heads=2,
+                    bg_num=2, num_prompt=12, ncls=5, shot=case.shot,
+                    drop_rate=0.0, fps_first="first_valid")
+    return model, "fptrans", case._inputs()
+
+
+def _on(device, value):
+    if isinstance(value, list):
+        return [_on(device, v) for v in value]
+    return torch.as_tensor(np.asarray(value), device=device)
 
 
 @torch.no_grad()
@@ -134,9 +168,13 @@ def replay_baseline(name: str, device="cpu"
     model = model.to_empty(device=torch.device(device)).eval()
     model.load_state_dict(reference_baseline_state_dict(
         kind, make_weights(case, shapes)), strict=True)
-    args = [torch.as_tensor(np.asarray(a), device=device) for a in inputs]
-    out = model(*args)
+    out = model(*[_on(device, a) for a in inputs])
     if name == "denet_2way_2shot":
         return {"full": out[0].cpu().numpy(),
                 "binary": out[1].cpu().numpy()}, outputs
+    if name == "swin_features":
+        return {f"feat{i}": f.reshape(f.shape[0], -1, f.shape[-1]).cpu()
+                .numpy() for i, f in enumerate(out)}, outputs
+    if name == "fptrans_1shot":
+        out = out["out"]
     return {"out": out.float().cpu().numpy()}, outputs
