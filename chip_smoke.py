@@ -11,7 +11,8 @@ episode engine on a synthetic COCO root), the evaluation protocols
 (``validate --checkpoint``'s fold x rerun protocol on that run, PASCAL-5i
 on a synthetic VOC root, the COCO test protocol), the images path, and
 the ResNet / VGG baselines (PANet, PPNet, DENet, BAM, HDMNet) through
-``cli validate``.
+``cli validate``, DCAMA and FPTrans, and the LAM variants of 19 files of
+``parameters/``.
 
 Run from the repository root, with no arguments:
 
@@ -313,7 +314,32 @@ reports):
    (``baseline_logits_agree``: rtol 1e-3 / atol 5e-4 on the flagged
    classes, argmax above BASELINE_ARGMAX_AGREE); the golden fixtures
    ``ppnet_full``, ``denet_2way_2shot``, ``bam_1shot`` and
-   ``hdmnet_1shot`` on the card at their cases' tolerances.
+   ``hdmnet_1shot`` on the card at their cases' tolerances;
+29. DCAMA (Swin-B) and FPTrans through ``cli validate``, DCAMA's SGD recipe
+   through ``cli run`` (``phase_swin_vit_baselines``);
+30. the LAM variants (``phase_lam_variants``): every distinct model block
+   of the 15 trainval files of VARIANT_TRAIN (OneWay / Identity fusion,
+   ``class_embedding_dim`` with Affinity and PrototypeAffinity, the
+   pooler, several embeddings an example, TokenPool, two classification
+   levels, ``conv_classification``, dropout 0.2 and 0.5) at its own
+   ``image_size``, ``image_embed_dim`` and ``embed_dim`` through ``Run``
+   (VARIANT_STEPS steps at VARIANT_TUPLE, VARIANT_VAL validation episodes
+   a set) on phase 20's and phase 22's 480-px roots and on 1024-px roots
+   of 64 x 64 caches, 4.3_AFClass_SAM without its
+   ``transformer_feature_size`` (C3): finite losses and metrics, steps/s,
+   peak memory, the first step's loss card against CPU in fp32 within
+   VARIANT_LOSS_RTOL (not where the step draws dropout masks: the card's
+   and the CPU's generators differ), one validation batch's fp32 logits
+   card against CPU (``variant_logits_agree``: the argmax equal wherever
+   the tolerance cannot swap the two largest logits), a card dropout mask's
+   keep rate within 5 binomial standard deviations; K6 launched in
+   4.3_AFClass_SAM's model, K7 counted by call site in the bf16
+   ``coco20i/mae_pool.yaml``, no launch in the other fp32 files; then
+   the 4 validation files of VARIANT_VALIDATE through ``cli validate
+   --checkpoint --folds i``, each grid point from the checkpoint of a
+   run of its model block (a run of its own on VARIANT_EXTRA_FROM's
+   set-up where no trainval file has the block), with a ``data_dir``
+   (C12).
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. The models are the repo's LAM
@@ -5253,6 +5279,390 @@ def phase_swin_vit_baselines() -> dict:
     return launches
 
 
+# phase 30: the LAM variants of 19 files of parameters/ (OneWay / Identity
+# fusion, class_embedding_dim and PrototypeAffinity, embeddings per example,
+# TokenPool, classification_levels, conv_classification, dropout), each at
+# its own image_size / image_embed_dim / embed_dim with seeded weights.
+# Each distinct model block of a trainval file trains VARIANT_STEPS steps
+# through Run at VARIANT_TUPLE (1 episode, 1 class, 2 examples: the first
+# step's loss card against CPU, within VARIANT_LOSS_RTOL), validates
+# VARIANT_VAL episodes a set (finite metrics), and the first episode of a
+# validation batch goes through the fp32 model on both
+# (variant_logits_agree); a validation file's grid point takes the
+# checkpoint of a run of its model block (VARIANT_EXTRA blocks have no
+# trainval file among the 19 and get a run of their own, on
+# VARIANT_EXTRA_FROM's set-up). Caches: phase 20's COCO root and phase 22's
+# VOC root at 480 px (30 x 30), and roots of VARIANT_IMAGES_1024 images at
+# 1024 px (64 x 64; VARIANT_CATEGORIES COCO categories).
+VARIANT_DIR = "build/variants_run"
+VARIANT_CARD = "cuda"        # the device measured against the CPU
+VARIANT_STEPS, VARIANT_VAL = 3, 2
+VARIANT_TUPLE = [1, 1, 2]
+VARIANT_LOSS_RTOL = 2e-3
+VARIANT_IMAGES_1024 = 64
+VARIANT_CATEGORIES = 16
+VARIANT_TRAIN = (
+    ("trainval/Ablations/mae_transformer.yaml", "voc"),
+    ("trainval/other/COCO_complete_256_oneway.yaml", "coco1024"),
+    ("trainval/other/COCO_mae_oneway256.yaml", "coco"),
+    ("trainval/other/Pascal/PASCAL_identity.yaml", "voc1024"),
+    ("trainval/other/Affinity/4.3_AFClass_SAM.yaml", "coco1024"),
+    ("trainval/other/Affinity/4.3.1_AFClass_MAE.yaml", "coco"),
+    ("trainval/other/Affinity/4.3.2_AFClass_MAE_noconvs.yaml", "coco"),
+    ("trainval/other/Affinity/4.4_AffinityPrototype.yaml", "coco"),
+    ("trainval/pascal/mae_chooser.yaml", "voc"),
+    ("trainval/pascal/mae_multiemb.yaml", "voc"),
+    ("trainval/coco20i/mae_pool.yaml", "coco"),
+    ("trainval/pascal/mae_pool.yaml", "voc"),
+    ("trainval/pascal/mae_levels.yaml", "voc"),
+    ("trainval/pascal/mae_nodown.yaml", "voc"),
+    ("trainval/other/Pascal/PASCAL_dropout.yaml", "voc1024"),
+)
+VARIANT_VALIDATE = (
+    "validation/Ablations/transformer_spatial.yaml",
+    "validation/Pascal/mae_multiemb.yaml",
+    "validation/Pascal/mae_cross.yaml",
+    "validation/Pascal/mae_levels.yaml",
+)
+VARIANT_EXTRA_FROM = "trainval/pascal/mae_multiemb.yaml"
+# 4.3_AFClass_SAM.yaml's transformer_feature_size 40 is not the 64 x 64
+# grid: the JAX package cannot run it (ROADMAP C3); it runs on the grid
+VARIANT_MODEL = {"trainval/other/Affinity/4.3_AFClass_SAM.yaml":
+                 {"transformer_feature_size": [None]}}
+VARIANT_K6 = "trainval/other/Affinity/4.3_AFClass_SAM.yaml"
+
+
+def variant_roots() -> dict:
+    """The caches of phase 30: phase 20's and phase 22's 480-px roots
+    (written where missing) and the 1024-px ones."""
+    from labelanything_tpu_torch.data.synthetic_coco import (
+        COCO_CATEGORY_IDS, write_synthetic_coco)
+    from labelanything_tpu_torch.data.synthetic_voc import write_synthetic_voc
+
+    coco = mae_paths()
+    if not os.path.exists(coco["instances_path"]):
+        coco = write_synthetic_coco(f"{MAE_DIR}/coco", seed=SEED,
+                                    num_images=MAE_IMAGES)
+    voc_dir = f"{VOC_DIR}/voc"
+    voc = {"data_dir": voc_dir, "emb_dir": f"{voc_dir}/embeddings"}
+    if not os.path.exists(voc["emb_dir"]):
+        voc = write_synthetic_voc(voc_dir, seed=SEED, num_images=VOC_IMAGES)
+    coco1024 = write_synthetic_coco(
+        f"{VARIANT_DIR}/coco1024", seed=SEED, num_images=VARIANT_IMAGES_1024,
+        grid=64, category_ids=COCO_CATEGORY_IDS[:VARIANT_CATEGORIES])
+    # half of the names validate, 2 or 3 classes a mask: each of a fold's
+    # classes then shows in a few validation images, as N1K1 needs
+    voc1024 = write_synthetic_voc(f"{VARIANT_DIR}/voc1024", seed=SEED,
+                                  num_images=VARIANT_IMAGES_1024, grid=64,
+                                  classes_per_image=(2, 3), val_share=0.5)
+    pick = lambda d, keys: {k: d[k] for k in keys}
+    return {"coco": pick(coco, ("instances_path", "emb_dir")),
+            "coco1024": pick(coco1024, ("instances_path", "emb_dir")),
+            "voc": pick(voc, ("data_dir", "emb_dir")),
+            "voc1024": pick(voc1024, ("data_dir", "emb_dir"))}
+
+
+def variant_config(path: str, paths: dict, model: dict = None) -> dict:
+    """``path`` on ``paths`` (protocol_config, VARIANT_VAL episodes a set)
+    cut to one epoch of VARIANT_STEPS steps at VARIANT_TUPLE, a log line
+    a step; ``model`` updates the model block."""
+    cfg = protocol_config(f"parameters/{path}", paths, VARIANT_VAL,
+                          model=model)
+    p = cfg["parameters"]
+    for d in p["dataset"]["datasets"].values():
+        if "val_num_samples" in d and "split" not in d:
+            # the whole-COCO dataset (no folds) counts its episodes so
+            d["num_samples"] = d.pop("val_num_samples")
+    p.setdefault("train_params", {})["max_epochs"] = [1]
+    p.setdefault("logger", {})["log_frequency"] = [1]
+    p["dataloader"].update(num_steps=[VARIANT_STEPS], num_workers=[8],
+                           possible_batch_example_nums=[[VARIANT_TUPLE]])
+    return cfg
+
+
+def model_key(block: dict) -> str:
+    return json.dumps({k: v for k, v in block.items() if k != "checkpoint"},
+                      sort_keys=True, default=str)
+
+
+def draws_masks(model: torch.nn.Module) -> bool:
+    """Whether a train()-mode forward draws random masks: dropout, or the
+    cross-attention extraction's embedding dropout (their streams differ
+    between the card's generator and the CPU's)."""
+    from labelanything_tpu_torch.models.common import Dropout
+    from labelanything_tpu_torch.models.prompt_encoder import \
+        EmbeddingTransformer
+
+    return any((isinstance(m, Dropout) and m.rate > 0)
+               or (isinstance(m, EmbeddingTransformer)
+                   and m.embedding_dropout > 0) for m in model.modules())
+
+
+def variant_logits_agree(gpu: torch.Tensor, cpu: torch.Tensor,
+                         what: str) -> tuple:
+    """The card's fp32 logits against the CPU's: the same non-finite
+    entries (the pad band, classes that no example flags; two
+    classification levels merge such a class's -inf into NaN, taken as
+    -inf here), the finite ones within rtol 1e-3 / atol 5e-4, and the
+    argmax equal at every decisive pixel: where the CPU's two largest
+    logits part by more than twice the tolerance at the largest, so that
+    no difference the tolerance admits can swap them. (With seeded
+    weights the pooler's classes tie to 1e-3 on nearly every pixel, and
+    phase 28's share of agreeing pixels would count rounding.) Returns
+    (max |card - cpu|, the logits' scale, the argmax agreement over all
+    pixels, the decisive pixels' share)."""
+    g, c = (torch.where(torch.isnan(x), float("-inf"), x.float()).cpu()
+            .numpy() for x in (gpu, cpu))
+    finite = np.isfinite(c)
+    check(np.array_equal(np.isfinite(g), finite) and finite.any(),
+          f"{what}: the non-finite logits differ")
+    diff = float(np.abs(g[finite] - c[finite]).max())
+    check(np.allclose(g[finite], c[finite], rtol=1e-3, atol=5e-4),
+          f"{what}: logits card / cpu differ by up to {diff:.3g}")
+    top2 = np.sort(c, axis=1)[:, -2:]
+    with np.errstate(invalid="ignore"):
+        gap = top2[:, 1] - top2[:, 0]
+    decisive = np.isfinite(top2[:, 1]) & (
+        np.nan_to_num(gap, nan=0.0, posinf=np.inf)
+        > 2 * (5e-4 + 1e-3 * np.abs(top2[:, 1])))
+    same = g.argmax(1) == c.argmax(1)
+    check(same[decisive].all(), f"{what}: the argmax differs at "
+          f"{int((~same & decisive).sum())} decisive pixels")
+    return (diff, float(np.abs(c[finite]).max()), float(same.mean()),
+            float(decisive.mean()))
+
+
+def variant_train(label: str, flat: dict, out: str) -> dict:
+    """One model block: VARIANT_STEPS steps through ``Run`` on the card,
+    its checkpoint, validation, the first step's loss and one validation
+    batch's logits card (fp32) against CPU, a dropout mask's keep rate;
+    printed on one line. Returns the launches and the checkpoint dir."""
+    import copy
+
+    from labelanything_tpu_torch.api import build_on_device
+    from labelanything_tpu_torch.experiment import Run
+    from labelanything_tpu_torch.experiment import run as run_mod
+    from labelanything_tpu_torch.models.common import (Dropout,
+                                                       dropout_generator)
+    from labelanything_tpu_torch.parallel.train_step import \
+        pass_dropout_generator
+    from labelanything_tpu_torch.train.substitutor import divide_query_examples
+    from labelanything_tpu_torch.typing import LossDict
+
+    t0 = time.perf_counter()
+    sites = {}
+    with mock.patch.object(run_mod, "build_on_device", site_counter(sites)):
+        run = Run().init(flat, out, device=VARIANT_CARD)
+    model = run.state.model
+    start = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    first, losses, step = {}, [], run.train_step
+
+    def recorded(state, batch, gt, generator, *args, **kw):
+        if not first:
+            first.update(batch={k: v.detach().cpu().clone()
+                                for k, v in batch.items()},
+                         gt=torch.as_tensor(gt).cpu().clone(),
+                         rows=generator.get_state().clone())
+        state, aux = step(state, batch, gt, generator, *args, **kw)
+        losses.append(aux["loss"].detach())
+        return state, aux
+
+    run.train_step = recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t1 = time.perf_counter()
+    run.train_epoch(0)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t1
+    launches, site_launches = dict(fa.LAUNCHES), dict(sites)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    # a file that substitutes takes a pass an example and one more a batch
+    check(len(losses) >= VARIANT_STEPS and all(np.isfinite(losses)),
+          f"{label}: losses {losses}")
+    run.checkpoints.save_latest(run.state, 0, run.generator)
+    metrics = run.validate(0)
+    check(metrics and all(np.isfinite(list(metrics.values()))),
+          f"{label}: validation metrics {metrics}")
+
+    # fp32 on both sides from the starting weights: the first step's loss
+    # (its batch and class rows) and one validation batch's logits
+    # the Run's block: its unpad rule is the dataset's (custom_preprocess)
+    block = dict(flat["model"], dtype="float32",
+                 custom_preprocess=model.custom_preprocess)
+    block.pop("checkpoint", None)
+    models = {}
+    for side, dev in (("card", VARIANT_CARD), ("cpu", "cpu")):
+        m = build_on_device(block, dev, seed=None)
+        m.load_state_dict({k: v.to(dev) for k, v in start.items()})
+        models[side] = (m, dev)
+    parity = {}
+    masks = draws_masks(models["cpu"][0])
+    if not masks:
+        for side, (m, dev) in models.items():
+            rows = torch.Generator()
+            rows.set_state(first["rows"])
+            loss_mod = copy.deepcopy(run.state.loss).to(dev)
+            with torch.no_grad():
+                result = m.train()({k: v.to(dev) for k, v in
+                                    first["batch"].items()}, rows)
+                parity[side] = float(loss_mod(result, first["gt"].to(dev))[
+                    LossDict.VALUE])
+        rel = abs(parity["card"] - parity["cpu"]) / abs(parity["cpu"])
+        check(rel <= VARIANT_LOSS_RTOL,
+              f"{label}: first loss card {parity['card']} / cpu "
+              f"{parity['cpu']}")
+        if flat["model"].get("dtype", "float32") == "float32":
+            # the fp32 Run's own first step took the same batch and rows
+            check(abs(losses[0] - parity["card"]) <= 1e-5 * abs(losses[0]),
+                  f"{label}: the Run's first loss {losses[0]} / its "
+                  f"recomputation {parity['card']}")
+    loader = next(iter(run.val_loaders.values()))
+    (batch, _), _ = next(iter(loader))
+    device_batch, _ = run._device_batch(batch, example_rows=slice(1, None))
+    inputs, _ = divide_query_examples(device_batch)
+    inputs = {k: v[:1] for k, v in inputs.items()}     # its first episode
+    with torch.no_grad():
+        gpu = models["card"][0].eval()(inputs)[ResultDict.LOGITS]
+        cpu = models["cpu"][0].eval()(
+            {k: v.cpu() for k, v in inputs.items()})[ResultDict.LOGITS]
+    diff, scale, agree, decisive = variant_logits_agree(gpu, cpu, label)
+    keep = ""
+    rates = sorted({m.rate for m in model.modules()
+                    if isinstance(m, Dropout) and m.rate > 0})
+    if rates:
+        drop = Dropout(rates[0]).train()
+        n = 10 ** 6
+        card = torch.device(VARIANT_CARD)
+        with dropout_generator(pass_dropout_generator(run.state, card)):
+            kept = int((drop(torch.ones(n, device=card)) != 0).sum())
+        sd = (n * rates[0] * (1 - rates[0])) ** 0.5
+        check(abs(kept - n * (1 - rates[0])) < 5 * sd,
+              f"{label}: a dropout mask kept {kept} of {n} at rate "
+              f"{rates[0]}")
+        keep = (f"; a card dropout mask at rate {rates[0]} keeps {kept} of "
+                f"{n} ({(kept - n * (1 - rates[0])) / sd:+.2f} sd)")
+    ckpt = f"{out}/checkpoints"
+    run.close()
+    del run, model, models
+    torch.cuda.empty_cache()
+    m = flat["model"]
+    loss_txt = ("the train step draws dropout masks: loss not compared, "
+                "eval() logits are" if masks else
+                f"first loss card {parity['card']:.6f} / CPU "
+                f"{parity['cpu']:.6f} (fp32)")
+    site_txt = (f", K7 by call site {site_launches}"
+                if any(site_launches.values()) else "")
+    print(f"variants: {label} ({m.get('image_size')} px, "
+          f"{m.get('image_embed_dim')} -> {m.get('embed_dim')}, "
+          f"{m.get('dtype', 'float32')}): {VARIANT_STEPS} batches, "
+          f"{len(losses)} passes in {t_train:.2f} s ({len(losses) / t_train:.2f}"
+          f" passes/s, the first included), peak {peak:.2f} GiB, losses "
+          + ", ".join(f"{x:.5f}" for x in losses)
+          + f", launches {nonzero(launches)}{site_txt}; validation "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())
+                      if k.endswith("miou") and not k.endswith("bmiou"))
+          + f"; {loss_txt}; one batch {tuple(gpu.shape)} card / CPU max "
+          f"|diff| {diff:.3g} at scale {scale:.3g}, argmax {agree:.6f} "
+          f"(decisive pixels {decisive:.6f} of the frame, all agreeing)"
+          f"{keep}; {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "checkpoint": ckpt}
+
+
+def phase_lam_variants() -> dict:
+    """Phase 30: the LAM variants of 19 files of ``parameters/``: every
+    distinct model block of the 15 trainval files through ``Run`` on the
+    card (variant_train), then the 4 validation files through ``cli
+    validate --checkpoint``, each grid point from the checkpoint of a run
+    of its model block, with a ``data_dir`` (C12). K6 must launch in
+    4.3_AFClass_SAM's model at 1024 px; K7's launches of the bf16
+    coco20i/mae_pool.yaml are counted by call site; the other fp32 files
+    launch no kernel."""
+    import shutil
+
+    from labelanything_tpu_torch.utils.config import (expand_experiment,
+                                                      load_yaml)
+
+    t0 = time.perf_counter()
+    shutil.rmtree(VARIANT_DIR, ignore_errors=True)
+    roots = variant_roots()
+    t_roots = time.perf_counter() - t0
+    path_launches, runs = {}, {}
+
+    def add(launches: dict) -> None:
+        for k, v in launches.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+
+    for path, root in VARIANT_TRAIN:
+        cfg = variant_config(path, roots[root], VARIANT_MODEL.get(path))
+        seen = set()
+        for i, flat in enumerate(expand_experiment(cfg)):
+            key = model_key(flat["model"])
+            if key in seen:
+                continue
+            seen.add(key)
+            label = f"{path.split('/')[-1]}[{i}]"
+            out = variant_train(label, flat, f"{VARIANT_DIR}/{len(runs)}")
+            launches = nonzero(out["launches"])
+            if path == VARIANT_K6:
+                check(any(k.startswith("flash") for k in launches),
+                      f"{label}: no K6 launch at 1024 px ({launches})")
+            elif flat["model"].get("dtype", "float32") == "float32":
+                check(not launches, f"{label}: fp32 launches {launches}")
+            add(out["launches"])
+            runs.setdefault(key, out["checkpoint"])
+
+    for path in VARIANT_VALIDATE:
+        # the 1-shot sets: a synthetic VOC root's validation names hold too
+        # few images of a class for 5 shots
+        sets = [n for n in load_yaml(f"parameters/{path}")["parameters"][
+            "dataset"]["datasets"] if n.endswith("K1")]
+        cfg = protocol_config(f"parameters/{path}", roots["voc"], VARIANT_VAL,
+                              sets=sets)
+        params = write_params(cfg, f"{VARIANT_DIR}/{path.split('/')[-1]}")
+        for i, flat in enumerate(expand_experiment(cfg)):
+            key = model_key(flat["model"])
+            label = f"{path.split('/')[-1]}[{i}]"
+            if key not in runs:
+                # a run of this block on a trainval file's set-up
+                extra = variant_config(
+                    VARIANT_EXTRA_FROM, roots["voc"],
+                    {k: [v] for k, v in flat["model"].items()
+                     if k != "checkpoint"})
+                out = variant_train(f"{label} (its own run)",
+                                    expand_experiment(extra)[0],
+                                    f"{VARIANT_DIR}/{len(runs)}")
+                check(not nonzero(out["launches"]),
+                      f"{label}: fp32 launches {out['launches']}")
+                runs[key] = out["checkpoint"]
+            t = time.perf_counter()
+            fa.reset_launches()
+            out_dir = f"{VARIANT_DIR}/{label}"
+            rc = cli_main(["validate", "--parameters", params, "--checkpoint",
+                           runs[key], "--folds", str(i), "--reruns", "1",
+                           "--out-dir", out_dir], f"{out_dir}.out")
+            check(rc == 0, f"{label}: cli validate returned {rc}")
+            check(not nonzero(dict(fa.LAUNCHES)),
+                  f"{label}: launches {nonzero(dict(fa.LAUNCHES))}")
+            with open(f"{out_dir}/results.json") as f:
+                results = json.load(f)
+            values = [v for k, v in results.items()
+                      if k.startswith(f"fold{i}/")]
+            check(values and all(np.isfinite(values)),
+                  f"{label}: results {results}")
+            print(f"variants: {label} cli validate --checkpoint "
+                  f"{runs[key]} --folds {i}: " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in sorted(results.items())
+                      if k.endswith("_miou"))
+                  + f"; {time.perf_counter() - t:.1f} s")
+    print(f"variants: roots {t_roots:.1f} s; {len(runs)} model blocks "
+          f"trained; launches on these paths {nonzero(path_launches)}; "
+          f"phase 30 took {time.perf_counter() - t0:.1f} s")
+    return path_launches
+
+
 def main() -> None:
     card = phase_card()
     kind = torch.cuda.get_device_name(0)
@@ -5323,6 +5733,8 @@ def main() -> None:
     clock("28")
     paths.append(phase_swin_vit_baselines())
     clock("29")
+    paths.append(phase_lam_variants())
+    clock("30")
     print(f"profiler passes made again for a lost guard: "
           f"{time_kernels.guard_overruns}")
     summary = []

@@ -53,7 +53,9 @@ _TORCH_ONLY_KEYS = ("checkpoint", "use_sam_checkpoint", "torch_dtype",
 
 
 class LabelAnythingConfig(dict):
-    """Plain-dict config (reference: build_lam.py:402-464)."""
+    """Plain-dict config (reference: build_lam.py:402-464): any key of a
+    model block, the LAM variants' included, goes to ``config.json`` and
+    back unchanged."""
 
     @classmethod
     def from_file(cls, path: str) -> "LabelAnythingConfig":
@@ -115,7 +117,10 @@ def build_from_config(config: Dict[str, Any]) -> torch.nn.Module:
     registry (the LAM models "lam_b", "lam_l", "lam_h", "lam_no_vit", or the
     baselines "panet", "ppnet", "denet", "bam", "hdmnet", "dcama",
     "fptrans"); without one it
-    is, like the JAX ``LabelAnything``, the no-encoder ``build_lam``."""
+    is, like the JAX ``LabelAnything``, the no-encoder ``build_lam``. Every
+    other key is a builder argument, the LAM variants' included
+    (``fusion_transformer``, ``class_embedding_dim``, ``prompt_encoder``,
+    ``embeddings_per_example``, ``dropout``, ...: ``models.build_lam``)."""
     args = {k: v for k, v in config.items() if k not in _NOT_BUILD_ARGS}
     name = config.get("name")
     if name is None:

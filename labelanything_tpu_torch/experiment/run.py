@@ -261,7 +261,7 @@ class Run:
                 substitute=tp.get("substitute", True),
                 accumulate=tp.get("accumulate_substitution", False))
         self.state = init_train_state(
-            model, loss, self.device,
+            model, loss, self.device, dropout_seed=self.seed,
             name=tp.get("optimizer", "AdamW"),
             learning_rate=tp.get("initial_lr", 5e-5),
             weight_decay=tp.get("weight_decay", 0.0),

@@ -16,9 +16,17 @@ Module names are the JAX package's flax names (``up_conv0`` ... ``up_ln2``,
 ``utils.weights.state_dict_from_jax`` of a JAX affinity model loads with
 ``strict=True``.
 
-Not ported: ``prototype_merge`` (few_type "PrototypeAffinity", ROADMAP A13)
-and a ``transformer_feature_size`` other than the feature grid, with which
-the JAX package cannot run (ROADMAP C3).
+``prototype_merge`` (few_type "PrototypeAffinity") is the JAX package's
+reconstruction (JAX ``affinity_decoder.py:60-70, 181-264``): the
+reference's branch cannot run (it splits heads 8 and 32 ways on the two
+sides of one product and returns an unbound name), so both packages follow
+the JAX version (ROADMAP C19). The class prototypes attend to the
+class-maximum of the affinity maps, an MLP projects them to the last
+up-conv's width, and a per-head prototype / affinity correlation joins the
+upsampled maps before ``out_conv``.
+
+Not ported: a ``transformer_feature_size`` other than the feature grid,
+with which the JAX package cannot run (ROADMAP C3).
 """
 
 from __future__ import annotations
@@ -29,8 +37,13 @@ import torch
 from torch import nn
 
 from ..typing import ResultDict
-from .common import Conv2d, ConvTranspose2d, LayerNorm2d, gelu
+from .common import (AttentionMLPBlock, Conv2d, ConvTranspose2d, LayerNorm2d,
+                     gelu)
+from .mask_decoder import MLP
 from .transformer import AffinityTransformer
+
+# the prototype side's head split of prototype_merge
+PROTO_HEADS = 8
 
 CLASS_FUSIONS = ("sum", "mul", "softmax", "sigmoid")
 
@@ -47,10 +60,6 @@ class AffinityDecoder(nn.Module):
                  transformer_keys_are_images: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if prototype_merge:
-            raise NotImplementedError(
-                "prototype_merge (few_type 'PrototypeAffinity') is not ported "
-                "(ROADMAP A13)")
         if class_fusion not in CLASS_FUSIONS:
             raise ValueError(f"unknown class_fusion {class_fusion!r}; one of "
                              f"{CLASS_FUSIONS}")
@@ -65,7 +74,18 @@ class AffinityDecoder(nn.Module):
             self.add_module(f"up_conv{i}", ConvTranspose2d(
                 cin, cout, 2, stride=2, dtype=dtype))
             self.add_module(f"up_ln{i}", LayerNorm2d(cout, dtype=dtype))
-        self.out_conv = Conv2d(depths[2], 1, 1, dtype=dtype)
+        self.prototype_merge = prototype_merge
+        if prototype_merge:
+            if depths[2] % PROTO_HEADS:
+                raise ValueError("transformer_dim / downsample_rate must be "
+                                 "divisible by the 8-way prototype head split")
+            self.attn_token_to_image = AttentionMLPBlock(
+                td, 1, 2048, 8, act=gelu, dtype=dtype)
+            self.class_embedding_mlp = MLP(td, td, depths[2], 3, dtype=dtype)
+            self.proto_ln = LayerNorm2d(PROTO_HEADS, dtype=dtype)
+        self.out_conv = Conv2d(
+            depths[2] + (PROTO_HEADS if prototype_merge else 0), 1, 1,
+            dtype=dtype)
         self.spatial_convs = None
         if spatial_convs is not None:
             # conv at 3i, LayerNorm2d at 3i + 1, activation at 3i + 2
@@ -127,10 +147,47 @@ class AffinityDecoder(nn.Module):
         q = q.reshape(b * c, h, w, d)
         if self.spatial_convs is not None:
             q = self.spatial_convs(q)
-        for i in range(3):
-            conv, ln = (getattr(self, f"{n}{i}") for n in ("up_conv", "up_ln"))
-            q = gelu(ln(conv(q)))
-        logits = self.out_conv(q).reshape(b, c, 8 * h, 8 * w)
         class_valid = flag_examples.bool().any(dim=1)
+        if self.prototype_merge:
+            logits = self._prototype_merge(
+                q, pe_result[ResultDict.CLASS_EMBS], image_pe, class_valid)
+        else:
+            for i in range(3):
+                q = gelu(self._up_ln(i)(self._up_conv(i)(q)))
+            logits = self.out_conv(q).reshape(b, c, 8 * h, 8 * w)
         return torch.where(class_valid[:, :, None, None], logits,
                            float("-inf"))
+
+    def _up_conv(self, i: int) -> nn.Module:
+        return getattr(self, f"up_conv{i}")
+
+    def _up_ln(self, i: int) -> nn.Module:
+        return getattr(self, f"up_ln{i}")
+
+    def _prototype_merge(self, q: torch.Tensor, prototypes: torch.Tensor,
+                         image_pe: torch.Tensor,
+                         class_valid: torch.Tensor) -> torch.Tensor:
+        """q (B*C, h, w, D) after the spatial convs, prototypes (B, C, D),
+        image_pe (1, h, w, D), class_valid (B, C) -> logits (B, C, 8h, 8w)
+        (JAX ``_prototype_merge``)."""
+        bc, h, w, d = q.shape
+        b, c = class_valid.shape
+        qd = q.reshape(b, c, h, w, d)
+        # the class-maximum map, classes no example flags left out
+        neg = torch.finfo(qd.dtype).min
+        reduced = torch.where(class_valid[:, :, None, None, None], qd,
+                              torch.full_like(qd, neg)).amax(dim=1)
+        keys = (reduced + image_pe).reshape(b, h * w, d)
+        protos = self.class_embedding_mlp(
+            self.attn_token_to_image(prototypes, keys, keys))
+        for i in range(2):
+            q = gelu(self._up_ln(i)(self._up_conv(i)(q)))
+        q = self._up_conv(2)(q)                       # (B*C, 8h, 8w, D3)
+        h8, w8, d3 = q.shape[1:]
+        aff = q.reshape(b, c, h8, w8, PROTO_HEADS, d3 // PROTO_HEADS)
+        pr = protos.reshape(b, c, PROTO_HEADS, d3 // PROTO_HEADS).to(aff.dtype)
+        proto_logits = torch.einsum("bcxyhd,bchd->bcxyh", aff, pr).reshape(
+            bc, h8, w8, PROTO_HEADS)
+        feats = torch.cat([gelu(self._up_ln(2)(q)),
+                           gelu(self.proto_ln(proto_logits))], dim=-1)
+        return self.out_conv(feats).reshape(b, c, h8, w8)

@@ -4,9 +4,11 @@ reference: label_anything/models/build_lam.py:96-300).
 Builders return modules whose parameters are fp32 and whose compute dtype is
 ``dtype``; weights come from :mod:`..utils.weights` (a seeded init or JAX
 parameters). Ported: a SAM ViT-B, ViT-L or ViT-H encoder, or none (precomputed
-embeddings: ``build_lam_no_vit``), with the two-way fusion transformer and
-the prototype decoder (``few_type`` "Prototype") or the affinity decoder
-("Affinity").
+embeddings: ``build_lam_no_vit``); the prompt encoder ``PromptImageEncoder``
+or "TokenPool" (``PromptImagePoolEncoder``) with its variants; the
+prototype decoder (``few_type`` "Prototype") behind a two-way, one-way or
+identity fusion transformer, or the affinity decoder ("Affinity",
+"PrototypeAffinity"); ``dropout`` wherever the JAX builder passes it.
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ from .build_encoder import build_vit_b, build_vit_h, build_vit_l
 from .lam import Lam, Neck
 from .mask_decoder import MaskDecoderLam
 from .prompt_encoder import (IdentityClassEncoder, PromptImageEncoder,
-                             RandomMatrixEncoder)
-from .transformer import AffinityTransformer, TwoWayTransformer
+                             PromptImagePoolEncoder, RandomMatrixEncoder)
+from .transformer import (AffinityTransformer, IdentityTransformer,
+                          OneWayTransformer, TwoWayTransformer)
 
 SAM_EMBED_DIM = 256
 
@@ -60,51 +63,70 @@ def model_dtype(dtype: Union[str, torch.dtype, None]) -> torch.dtype:
     return resolved
 
 
-def _two_way(embed_dim: int, dtype: torch.dtype, shared_keys: bool = False,
-             downsample_rate: int = 2) -> TwoWayTransformer:
-    return TwoWayTransformer(depth=2, embedding_dim=embed_dim, num_heads=8,
-                             mlp_dim=2048,
-                             attention_downsample_rate=downsample_rate,
-                             dtype=dtype, shared_keys=shared_keys)
+_FUSION_TRANSFORMERS = {"TwoWayTransformer": TwoWayTransformer,
+                        "OneWayTransformer": OneWayTransformer}
+
+
+def _fusion(name: str, embed_dim: int, dtype: torch.dtype,
+            downsample_rate: int = 2, dropout: float = 0.0,
+            shared_keys: bool = False) -> torch.nn.Module:
+    """The fusion transformer ``name`` at depth 2, 8 heads, MLP 2048;
+    "IdentityTransformer" takes no argument (JAX ``build_lam.py:74-84``)."""
+    if name == "IdentityTransformer":
+        return IdentityTransformer()
+    if name not in _FUSION_TRANSFORMERS:
+        raise ValueError(f"unknown fusion transformer {name!r}; one of "
+                         f"{sorted(_FUSION_TRANSFORMERS)} or "
+                         f"'IdentityTransformer'")
+    extra = {"shared_keys": shared_keys} if shared_keys else {}
+    return _FUSION_TRANSFORMERS[name](
+        depth=2, embedding_dim=embed_dim, num_heads=8, mlp_dim=2048,
+        attention_downsample_rate=downsample_rate, dtype=dtype,
+        dropout=dropout, **extra)
 
 
 def build_mask_decoder(embed_dim: int, decoder_attention_downsample_rate: int,
                        few_type: str = "Prototype",
+                       fusion_transformer: str = "TwoWayTransformer",
+                       segment_example_logits: bool = False,
                        spatial_convs: Optional[int] = None,
                        classification_layer_downsample_rate: int = 8,
+                       conv_upsample_stride: int = 2,
                        transformer_feature_size: Optional[int] = None,
-                       class_fusion: str = "sum",
+                       dropout: float = 0.0, class_fusion: str = "sum",
+                       classification_levels: int = 1,
+                       conv_classification: bool = False,
                        transformer_keys_are_images: bool = True,
                        dtype: torch.dtype = torch.float32):
-    """The decoder of ``few_type`` (reference: build_lam.py:238-298)."""
+    """The decoder of ``few_type`` (reference: build_lam.py:238-298). The
+    affinity decoder takes no dropout, its transformer does (as in JAX)."""
     if few_type == "Prototype":
         return MaskDecoderLam(
             transformer_dim=embed_dim,
-            transformer=_two_way(
-                embed_dim, dtype,
-                downsample_rate=decoder_attention_downsample_rate),
+            transformer=_fusion(fusion_transformer, embed_dim, dtype,
+                                decoder_attention_downsample_rate, dropout),
             spatial_convs=spatial_convs,
             classification_layer_downsample_rate=(
                 classification_layer_downsample_rate),
-            dtype=dtype)
-    if few_type == "Affinity":
+            dtype=dtype, segment_example_logits=segment_example_logits,
+            conv_upsample_stride=conv_upsample_stride,
+            classification_levels=classification_levels,
+            conv_classification=conv_classification, dropout=dropout)
+    if few_type in ("Affinity", "PrototypeAffinity"):
         return AffinityDecoder(
             transformer_dim=embed_dim,
             transformer=AffinityTransformer(
                 depth=2, embedding_dim=embed_dim, num_heads=8, mlp_dim=2048,
                 attention_downsample_rate=decoder_attention_downsample_rate,
-                dtype=dtype),
+                dtype=dtype, dropout=dropout),
             spatial_convs=spatial_convs,
             classification_layer_downsample_rate=(
                 classification_layer_downsample_rate),
             transformer_feature_size=transformer_feature_size,
             class_fusion=class_fusion,
+            prototype_merge=few_type == "PrototypeAffinity",
             transformer_keys_are_images=transformer_keys_are_images,
             dtype=dtype)
-    if few_type == "PrototypeAffinity":
-        raise NotImplementedError("few_type 'PrototypeAffinity' (the "
-                                  "affinity decoder's prototype_merge) is not "
-                                  "ported (ROADMAP A13)")
     raise NotImplementedError(f"few_type {few_type!r} not implemented")
 
 
@@ -128,7 +150,16 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
                transformer_keys_are_images: bool = True,
                transformer_feature_size: Optional[int] = None,
                apply_masks: bool = False, fused_window: bool = False,
-               int8_scores: bool = False) -> Lam:
+               int8_scores: bool = False,
+               class_embedding_dim: Optional[int] = None,
+               conv_classification: bool = False,
+               use_support_features_in_prompt_encoder: bool = True,
+               classification_levels: int = 1,
+               prompt_encoder: Optional[str] = None,
+               segment_example_logits: bool = False,
+               embeddings_per_example: Optional[int] = None,
+               embedding_extraction: Optional[str] = None,
+               dropout: float = 0.0) -> Lam:
     """Architecture factory (reference: build_lam.py:96-235).
     ``remat_encoder`` is the image encoder's ``remat``. ``structured_fusion``,
     ``mask_factor`` and ``shared_keys`` choose among exact forms of the
@@ -137,10 +168,10 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
     (``ops/twoway_shared.py`` instead of expanded keys). ``few_type`` and
     the four arguments after it go to :func:`build_mask_decoder`.
     ``fused_window`` and ``int8_scores`` are the image encoder's opt-in
-    kernels (``models/image_encoder.py``), off by default."""
-    if fusion_transformer != "TwoWayTransformer":
-        raise NotImplementedError(f"fusion transformer {fusion_transformer!r} "
-                                  f"is not ported")
+    kernels (``models/image_encoder.py``), off by default. The arguments
+    after them are the JAX ``_build_lam``'s, with its defaults; one
+    embedding per example implies ``segment_example_logits`` and the
+    converse (JAX l.188-191). ``prompt_encoder`` is None or "TokenPool"."""
     if apply_masks:
         raise NotImplementedError(
             "apply_masks=True is not ported: the port's attention takes no "
@@ -168,26 +199,44 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
     else:
         class_encoder_mod = IdentityClassEncoder()
 
+    if segment_example_logits and embeddings_per_example is None:
+        embeddings_per_example = 1
+    if embeddings_per_example and not segment_example_logits:
+        segment_example_logits = True
+    if prompt_encoder not in (None, "TokenPool"):
+        raise ValueError(f"unknown prompt_encoder {prompt_encoder!r}; None "
+                         f"or 'TokenPool'")
+    pe_cls = (PromptImagePoolEncoder if prompt_encoder == "TokenPool"
+              else PromptImageEncoder)
+
     neck = (None if image_embed_dim == embed_dim
             else Neck(image_embed_dim, embed_dim, dtype=dtype))
-    prompt_encoder = PromptImageEncoder(
+    prompt_encoder_mod = pe_cls(
         embed_dim=embed_dim, image_embedding_size=(grid, grid),
         input_image_size=(image_size, image_size), mask_in_chans=16,
-        transformer=_two_way(embed_dim, dtype, shared_keys),
+        transformer=_fusion("TwoWayTransformer", embed_dim, dtype,
+                            dropout=dropout, shared_keys=shared_keys),
         class_encoder=class_encoder_mod,
         example_class_attention=example_class_attention,
         class_attention=class_attention, example_attention=example_attention,
         dtype=dtype, structured_fusion=structured_fusion,
-        mask_factor=mask_factor)
+        mask_factor=mask_factor, class_embedding_dim=class_embedding_dim,
+        use_support_features=use_support_features_in_prompt_encoder,
+        embeddings_per_example=embeddings_per_example or 1,
+        embedding_extraction=embedding_extraction, dropout=dropout)
     mask_decoder = build_mask_decoder(
         embed_dim, decoder_attention_downsample_rate, few_type=few_type,
+        fusion_transformer=fusion_transformer,
+        segment_example_logits=segment_example_logits,
         spatial_convs=spatial_convs,
         classification_layer_downsample_rate=(
             classification_layer_downsample_rate),
-        transformer_feature_size=transformer_feature_size,
+        transformer_feature_size=transformer_feature_size, dropout=dropout,
         class_fusion=class_fusion,
+        classification_levels=classification_levels,
+        conv_classification=conv_classification,
         transformer_keys_are_images=transformer_keys_are_images, dtype=dtype)
-    return Lam(prompt_encoder=prompt_encoder, mask_decoder=mask_decoder,
+    return Lam(prompt_encoder=prompt_encoder_mod, mask_decoder=mask_decoder,
                image_encoder=vit, neck=neck, image_size=image_size,
                custom_preprocess=custom_preprocess)
 

@@ -136,15 +136,23 @@ class Lam(nn.Module):
                 generator: Optional[torch.Generator] = None) -> dict:
         """``generator`` (training): the CPU ``torch.Generator`` from which
         a ``RandomMatrixEncoder`` draws the classes' bank rows; without it
-        class c takes row c."""
+        class c takes row c. A ``train()``-mode forward of a model built
+        with dropout draws its masks from the generator of
+        ``models.common.dropout_generator``, which the train step sets.
+        The result also holds the pooler's MASK_EMBEDDINGS where the prompt
+        encoder gives them."""
         seg, pe_result = self._forward(batch, generator)
         seg = self.postprocess_masks_fixed(seg, batch[BatchKeys.DIMS])
         if BatchKeys.FLAG_GTS in batch:
             seg = torch.where(batch[BatchKeys.FLAG_GTS][:, :, None, None], seg,
                               float("-inf"))
-        return {ResultDict.LOGITS: seg,
-                ResultDict.EXAMPLES_CLASS_EMBS:
-                    pe_result[ResultDict.EXAMPLES_CLASS_EMBS]}
+        result = {ResultDict.LOGITS: seg,
+                  ResultDict.EXAMPLES_CLASS_EMBS:
+                      pe_result[ResultDict.EXAMPLES_CLASS_EMBS]}
+        if ResultDict.MASK_EMBEDDINGS in pe_result:
+            result[ResultDict.MASK_EMBEDDINGS] = \
+                pe_result[ResultDict.MASK_EMBEDDINGS]
+        return result
 
     def generate_class_embeddings(self, example_batch: Batch) -> dict:
         """Class embeddings of a support batch whose every image is an

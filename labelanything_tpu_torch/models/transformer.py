@@ -16,6 +16,16 @@ label_anything/models/transformer.py). Image tensors arrive channels-last
   ``shared_keys=True``: plain tensor code that runs the first block's
   image side once per base map.
 
+Neither the fused kernel nor the shared-keys form has dropout, so a
+forward in ``train()`` mode of a module built with ``dropout`` > 0 takes
+the module path by rule (the JAX package refuses its fused paths whenever
+``dropout`` > 0, ``transformer.py:290-296``); in ``eval()`` mode dropout is
+the identity and the rules above hold.
+
+``OneWayTransformer`` (image tokens attend to the class tokens) and
+``IdentityTransformer`` (no fusion) are the mask decoder's other fusion
+transformers (``fusion_transformer``).
+
 The JAX package's block-diagonal lane layouts are the TPU's and are not
 ported.
 
@@ -43,23 +53,85 @@ def _flatten_image(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h * w, d)
 
 
+class IdentityTransformer(nn.Module):
+    """No fusion (reference: transformer.py:17-23): the tokens and the
+    flattened image as they came."""
+
+    def forward(self, image_embedding: torch.Tensor, image_pe: torch.Tensor,
+                point_embedding: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return point_embedding, _flatten_image(image_embedding)
+
+
+class OneWayAttentionBlock(nn.Module):
+    """Queries attend to keys, then an MLP, each post-normed (reference:
+    transformer.py:106-155)."""
+
+    def __init__(self, embedding_dim: int, num_heads: int, mlp_dim: int = 2048,
+                 attention_downsample_rate: int = 2,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__()
+        d = embedding_dim
+        self.cross_attn_image_to_token = Attention(
+            d, num_heads, attention_downsample_rate, dtype=dtype,
+            dropout=dropout)
+        self.norm1 = LayerNorm(d, eps=1e-5, dtype=dtype)
+        self.mlp = MLPBlock(d, mlp_dim, act=F.relu, dtype=dtype,
+                            dropout=dropout)
+        self.norm2 = LayerNorm(d, eps=1e-5, dtype=dtype)
+
+    def forward(self, queries: torch.Tensor, keys: torch.Tensor,
+                query_pe: Optional[torch.Tensor]) -> torch.Tensor:
+        q = queries if query_pe is None else queries + query_pe
+        queries = self.norm1(
+            queries + self.cross_attn_image_to_token(q, keys, keys))
+        return self.norm2(queries + self.mlp(queries))
+
+
+class OneWayTransformer(nn.Module):
+    """The image's tokens attend to the class tokens, which stay as they
+    are (reference: transformer.py:26-103)."""
+
+    def __init__(self, depth: int, embedding_dim: int, num_heads: int,
+                 mlp_dim: int, attention_downsample_rate: int = 2,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            OneWayAttentionBlock(embedding_dim, num_heads, mlp_dim,
+                                 attention_downsample_rate, dtype=dtype,
+                                 dropout=dropout)
+            for _ in range(depth))
+
+    def forward(self, image_embedding: torch.Tensor, image_pe: torch.Tensor,
+                point_embedding: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (tokens (B, N, D) unchanged, image tokens (B, HW, D))."""
+        queries = _flatten_image(image_embedding)
+        pe = _flatten_image(image_pe)
+        for layer in self.layers:
+            queries = layer(queries, point_embedding, pe)
+        return point_embedding, queries
+
+
 class TwoWayAttentionBlock(nn.Module):
     """SAM-style bidirectional block (reference: transformer.py:255-330)."""
 
     def __init__(self, embedding_dim: int, num_heads: int, mlp_dim: int = 2048,
                  attention_downsample_rate: int = 2,
                  skip_first_layer_pe: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
-        d, ds = embedding_dim, attention_downsample_rate
-        self.self_attn = Attention(d, num_heads, dtype=dtype)
+        d, ds, p = embedding_dim, attention_downsample_rate, dropout
+        self.self_attn = Attention(d, num_heads, dtype=dtype, dropout=p)
         self.norm1 = LayerNorm(d, eps=1e-5, dtype=dtype)
-        self.cross_attn_token_to_image = Attention(d, num_heads, ds, dtype=dtype)
+        self.cross_attn_token_to_image = Attention(d, num_heads, ds,
+                                                   dtype=dtype, dropout=p)
         self.norm2 = LayerNorm(d, eps=1e-5, dtype=dtype)
-        self.mlp = MLPBlock(d, mlp_dim, act=F.relu, dtype=dtype)
+        self.mlp = MLPBlock(d, mlp_dim, act=F.relu, dtype=dtype, dropout=p)
         self.norm3 = LayerNorm(d, eps=1e-5, dtype=dtype)
         self.norm4 = LayerNorm(d, eps=1e-5, dtype=dtype)
-        self.cross_attn_image_to_token = Attention(d, num_heads, ds, dtype=dtype)
+        self.cross_attn_image_to_token = Attention(d, num_heads, ds,
+                                                   dtype=dtype, dropout=p)
         self.skip_first_layer_pe = skip_first_layer_pe
 
     def forward(self, queries, keys, query_pe, key_pe):
@@ -87,11 +159,12 @@ class TwoWayTransformer(nn.Module):
     def __init__(self, depth: int, embedding_dim: int, num_heads: int,
                  mlp_dim: int, attention_downsample_rate: int = 2,
                  dtype: torch.dtype = torch.float32,
-                 shared_keys: bool = False):
+                 shared_keys: bool = False, dropout: float = 0.0):
         """``shared_keys``: take ``ops.twoway_shared`` for keys given as base
         maps plus shifts (``image_shift``); without it they are expanded
         and go the way of any other keys."""
         super().__init__()
+        self.dropout = dropout
         self.depth = depth
         self.embedding_dim = embedding_dim
         self.num_heads = num_heads
@@ -102,11 +175,18 @@ class TwoWayTransformer(nn.Module):
         self.layers = nn.ModuleList(
             TwoWayAttentionBlock(embedding_dim, num_heads, mlp_dim,
                                  attention_downsample_rate,
-                                 skip_first_layer_pe=(i == 0), dtype=dtype)
+                                 skip_first_layer_pe=(i == 0), dtype=dtype,
+                                 dropout=dropout)
             for i in range(depth))
         self.final_attn_token_to_image = Attention(
-            embedding_dim, num_heads, attention_downsample_rate, dtype=dtype)
+            embedding_dim, num_heads, attention_downsample_rate, dtype=dtype,
+            dropout=dropout)
         self.norm_final_attn = LayerNorm(embedding_dim, eps=1e-5, dtype=dtype)
+
+    def drops(self) -> bool:
+        """Whether a forward now applies dropout (``train()`` mode and a
+        rate above 0): then only the module path computes it."""
+        return self.training and self.dropout > 0.0
 
     def forward(self, image_embedding: torch.Tensor, image_pe: torch.Tensor,
                 point_embedding: torch.Tensor,
@@ -123,14 +203,15 @@ class TwoWayTransformer(nn.Module):
         (B, H, W, Cm) and ``image_shift_proj`` (Cm, D) add the low-rank
         term ``map[b] @ proj``."""
         dt = self.compute_dtype
-        one_pe = image_pe.shape[0] == 1
+        # one positional grid for all instances, and no dropout to apply
+        fusable = image_pe.shape[0] == 1 and not self.drops()
         if image_shift is not None:
             g, bases = point_embedding.shape[0], image_embedding.shape[0]
             if g % bases:
                 raise ValueError(
                     f"image_shift needs the instance count ({g}) divisible "
                     f"by the base-map count ({bases})")
-            if self.shared_keys and one_pe:
+            if self.shared_keys and fusable:
                 smap = (None if image_shift_map is None
                         else _flatten_image(image_shift_map).to(dt))
                 proj = (None if image_shift_proj is None
@@ -148,7 +229,7 @@ class TwoWayTransformer(nn.Module):
                     image_shift_map @ image_shift_proj
                 ).to(image_embedding.dtype)
         keys = _flatten_image(image_embedding)
-        if (one_pe and not fa._plain_requested and ft.fused_twoway_ok(
+        if (fusable and not fa._plain_requested and ft.fused_twoway_ok(
                 keys.device, dt, point_embedding.shape[1], self.embedding_dim,
                 self.num_heads, self.mlp_dim,
                 self.attention_downsample_rate)):
@@ -173,11 +254,11 @@ class AffinityBlock(nn.Module):
 
     def __init__(self, embedding_dim: int, num_heads: int, mlp_dim: int,
                  attention_downsample_rate: int = 2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.attention = AttentionMLPBlock(
             embedding_dim, attention_downsample_rate, mlp_dim, num_heads,
-            act=F.relu, dtype=dtype)
+            act=F.relu, dtype=dtype, dropout=dropout)
 
     def forward(self, image_features: torch.Tensor,
                 support_features: torch.Tensor, support_masks: torch.Tensor,
@@ -201,11 +282,12 @@ class AffinityTransformer(nn.Module):
 
     def __init__(self, depth: int, embedding_dim: int, num_heads: int,
                  mlp_dim: int, attention_downsample_rate: int = 2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
             AffinityBlock(embedding_dim, num_heads, mlp_dim,
-                          attention_downsample_rate, dtype=dtype)
+                          attention_downsample_rate, dtype=dtype,
+                          dropout=dropout)
             for _ in range(depth))
 
     def forward(self, image_embedding: torch.Tensor,

@@ -21,10 +21,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..api import build_on_device
+from ..models.common import dropout_generator
 from ..train.metrics import (binary_confusion_matrix, confusion_matrix,
                              confusion_matrix_per_sample)
 from ..train.optim import build_optimizer, named_parameters
@@ -42,12 +44,25 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     step: int = 0          # optimizer updates applied so far
+    dropout_seed: int = 0  # the run's seed, for the dropout masks
+    passes: int = 0        # passes accumulated since the last update
+
+
+def pass_dropout_generator(state: TrainState,
+                           device: torch.device) -> torch.Generator:
+    """The generator of a pass's dropout masks, on ``device``: seeded from
+    the run's seed, the update count and the pass's index since the last
+    update, so a resumed run draws the masks the uninterrupted one drew
+    (the JAX step folds its pass key, ``fold_in(rng, 1)``)."""
+    entropy = [state.dropout_seed % 2 ** 63, state.step, state.passes]
+    seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed) >> 1)
 
 
 def init_train_state(model: Union[nn.Module, Dict[str, Any]],
                      loss_module: nn.Module,
                      device: Union[str, torch.device] = "cuda",
-                     seed: Optional[int] = 0,
+                     seed: Optional[int] = 0, dropout_seed: int = 0,
                      **optimizer_args: Any) -> TrainState:
     """Train state on ``device``: the first CUDA card unless the caller
     names another, such as ``"cpu"``. ``model`` is a model config, built
@@ -57,7 +72,8 @@ def init_train_state(model: Union[nn.Module, Dict[str, Any]],
     (``name``, ``learning_rate``,
     ``weight_decay``, ``backbone_lr``, ``scheduler``, ``freeze_backbone``,
     ...). With ``freeze_backbone`` the image encoder's parameters stop
-    requiring grad."""
+    requiring grad. ``dropout_seed`` seeds the passes' dropout masks
+    (:func:`pass_dropout_generator`)."""
     if isinstance(model, nn.Module):
         model = model.to(device)
     else:
@@ -65,7 +81,8 @@ def init_train_state(model: Union[nn.Module, Dict[str, Any]],
     loss_module = loss_module.to(device)
     optimizer, scheduler = build_optimizer(
         named_parameters(model=model, loss=loss_module), **optimizer_args)
-    return TrainState(model, loss_module, optimizer, scheduler)
+    return TrainState(model, loss_module, optimizer, scheduler,
+                      dropout_seed=dropout_seed)
 
 
 def _device_of(module: nn.Module) -> torch.device:
@@ -112,7 +129,8 @@ def make_train_step(num_classes: Optional[int] = None,
       gives them (numpy arrays or tensors; moved to the model's device);
     * ``generator``: the CPU ``torch.Generator`` of the class-row draw of
       ``RandomMatrixEncoder``, handed to the model's forward (None:
-      PyTorch's default generator);
+      PyTorch's default generator); the dropout masks come from
+      :func:`pass_dropout_generator`, on the model's device;
     * ``loss_scale``: the gradients are multiplied by it (the reference's
       1 / loss_normalizer of substitution accumulation); the reported loss
       is not;
@@ -140,7 +158,8 @@ def make_train_step(num_classes: Optional[int] = None,
         if apply_update and not use_accum:
             state.optimizer.zero_grad(set_to_none=True)
 
-        result = model(batch, generator)
+        with dropout_generator(pass_dropout_generator(state, device)):
+            result = model(batch, generator)
         loss_out = state.loss(result, gt)
         loss = loss_out[LossDict.VALUE]
         # .grad accumulates across calls: backward of (scale * loss) adds
@@ -153,6 +172,9 @@ def make_train_step(num_classes: Optional[int] = None,
             state.scheduler.step()
             state.optimizer.zero_grad(set_to_none=True)
             state.step += 1
+            state.passes = 0
+        else:
+            state.passes += 1
 
         with torch.no_grad():
             logits = result[ResultDict.LOGITS]

@@ -9,8 +9,9 @@ gradient. Per-pixel class lookups are plain gathers here; the JAX package
 spells them as one-hot contractions for the TPU.
 
 ``LabelAnythingLoss`` is an ``nn.Module``: it owns the learnable SigLIP
-temperature and bias of the prompt-contrastive component. The ``rmi``,
-``masks`` and symmetric losses of the JAX package are not ported yet.
+temperature and bias of the prompt-contrastive component. The ``masks``
+component is the GuidedPooler's regularizer (:func:`mask_embedding_loss`).
+The ``rmi`` and symmetric losses of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -150,12 +151,53 @@ def prompt_contrastive_loss(result: Dict[str, torch.Tensor],
     return torch.where(pair_mask, loss, 0.0).sum() / b
 
 
+def _mask_balance_loss(mask: torch.Tensor, tol: float = 0.25) -> torch.Tensor:
+    """How unevenly the embeddings share the mask mass (reference:
+    loss/mask.py loss_balance); mask (B, N, 1, H, W)."""
+    b, n = mask.shape[:2]
+    summed = mask.reshape(b, n, -1).sum(dim=-1)
+    target = (summed.abs().sum(dim=1) / n)[:, None]
+    balance = ((summed - target).abs() / (target + 1e-6)).sum(dim=1) / n
+    return torch.relu(balance - tol).sum() / b
+
+
+def _entropy(probabilities: torch.Tensor) -> torch.Tensor:
+    """Entropy in bits over the last axis."""
+    p = probabilities + 1e-10
+    return -(p * torch.log(p) / math.log(2.0)).sum(dim=-1)
+
+
+def mask_embedding_loss(result: Dict[str, Any], alpha: float = 0.2,
+                        beta: float = 0.4, gamma: float = 0.4
+                        ) -> torch.Tensor:
+    """The GuidedPooler's mask regularizer (reference: loss/mask.py
+    MaskEmbeddingLoss; JAX ``train/losses.py:227-250``): balance of the
+    mask mass between the embeddings, the entropy of each normalized
+    choice and the orthogonality of the choices, over MASK_EMBEDDINGS
+    (bg, fg), each (n, B*M*C, 1, H, W)."""
+    bg, fg = (m.float().movedim(0, 1)
+              for m in result[ResultDict.MASK_EMBEDDINGS])
+    balance = 0.5 * (_mask_balance_loss(bg) + _mask_balance_loss(fg)) * alpha
+
+    def flat(m: torch.Tensor) -> torch.Tensor:
+        return m.reshape(m.shape[0], m.shape[1], -1)
+
+    def normalized(m: torch.Tensor) -> torch.Tensor:
+        return flat(m) / flat(m).sum(-1, keepdim=True).clamp_min(1e-6)
+
+    entropy = 0.5 * (_entropy(normalized(bg)).mean()
+                     + _entropy(normalized(fg)).mean()) * beta
+    ortho = 0.5 * (loss_orthogonality(flat(bg))
+                   + loss_orthogonality(flat(fg))) * gamma
+    return balance + entropy + ortho
+
+
 LOGITS_LOSSES = {
     "focal": focal_loss,
     "dice": dice_loss,
     "fp": false_positive_loss,
 }
-_EMBEDDING_LOSSES = ("prompt_contrastive", "emb_contrastive")
+_EMBEDDING_LOSSES = ("prompt_contrastive", "emb_contrastive", "masks")
 
 
 class LabelAnythingLoss(nn.Module):
@@ -200,6 +242,8 @@ class LabelAnythingLoss(nn.Module):
             elif name == "prompt_contrastive":
                 value = prompt_contrastive_loss(result, self.t_prime,
                                                 self.bias)
+            elif name == "masks":
+                value = mask_embedding_loss(result, **cfg)
             else:
                 value = class_embedding_contrastive_loss(result)
             parts[name] = value

@@ -85,6 +85,7 @@ class ResultDict(StrEnum):
     CLASS_EMBS = "class_embeddings"
     EXAMPLES_CLASS_EMBS = "examples_class_embeddings"
     EXAMPLES_CLASS_SRC = "examples_class_src"
+    MASK_EMBEDDINGS = "mask_embeddings"
 
 
 class LossDict(StrEnum):

@@ -5,7 +5,14 @@
   tree, since it is a pure layout map) into a state dict of the original
   PyTorch LabelAnything layout, which the port's modules load with
   ``load_state_dict(strict=True)`` (the affinity decoder's up-convs keep
-  their flax names, ``up_conv0`` to ``up_conv2``). :func:`export_state_dict`
+  their flax names, ``up_conv0`` to ``up_conv2``). The variants' modules
+  take the names the export gives them: the one-way blocks'
+  ``layers.i``, ``class_projector_in`` / ``_out``, ``proto_chooser_0`` /
+  ``_1``, the pooler's ``attention`` and ``{fg,bg}_chooser_0..3``, the
+  cross-attention extraction's ``embeddings`` and ``layers.i``,
+  ``level_reducer``, ``prototype_tconv.i`` and PrototypeAffinity's
+  ``attn_token_to_image``, ``class_embedding_mlp`` and ``proto_ln``.
+  :func:`export_state_dict`
   is the port's own copy of the JAX package's function of that name
   (``utils/torch_import.py``; held equal to it by a test), extended by the
   SAM encoder's names.

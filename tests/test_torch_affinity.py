@@ -237,14 +237,16 @@ def test_transformer_feature_size_of_the_grid_is_the_plain_model(toy_params):
 
 def test_affinity_raises():
     """A ``transformer_feature_size`` other than the grid (the JAX fault,
-    ROADMAP C3), ``PrototypeAffinity`` (A13), ``apply_masks`` and
-    ``predict`` against cached class embeddings."""
+    ROADMAP C3), ``PrototypeAffinity`` at a width whose last up-conv the
+    8-way prototype heads do not divide (the JAX decoder asserts it too),
+    ``apply_masks`` and ``predict`` against cached class embeddings."""
     batch = _episode()
     la = LabelAnything(dict(TOY, name="lam_no_vit",
                             transformer_feature_size=4), "cpu", seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP C3"):
         la(batch)
-    with pytest.raises(NotImplementedError, match="A13"):
+    assert (TOY["embed_dim"] // 8) % 8
+    with pytest.raises(ValueError, match="8-way prototype head split"):
         build_from_config(dict(TOY, few_type="PrototypeAffinity"))
     with pytest.raises(NotImplementedError, match="apply_masks"):
         build_from_config(dict(TOY, apply_masks=True))

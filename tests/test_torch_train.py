@@ -35,6 +35,7 @@ from labelanything_tpu.typing import BatchKeys, IGNORE_INDEX, ResultDict
 from labelanything_tpu_torch.data.synthetic import random_full_batch
 from labelanything_tpu_torch.experiment.run import drop_absent_modalities
 from labelanything_tpu_torch.models import build_lam as tbl
+from labelanything_tpu_torch.models import common as tcommon
 from labelanything_tpu_torch.models.image_encoder import ImageEncoderViT as TViT
 from labelanything_tpu_torch.models.prompt_encoder import RandomMatrixEncoder
 from labelanything_tpu_torch.parallel.train_step import (init_train_state,
@@ -186,9 +187,12 @@ def test_label_anything_loss_matches_jax(components, class_weighting):
 
 
 def test_unported_loss_component_raises():
-    for name in ("rmi", "masks", "nonsense"):
+    for name in ("rmi", "nonsense"):
         with pytest.raises(ValueError, match="Unknown or unported"):
             tl.LabelAnythingLoss({name: {"weight": 1.0}})
+    # the GuidedPooler's regularizer is ported
+    masks = tl.LabelAnythingLoss({"masks": {"weight": 1.0}})
+    assert "masks" in masks.components
 
 
 def test_bf16_logits_reduce_in_fp32():
@@ -554,13 +558,16 @@ def test_random_matrix_encoder_row_draw():
 
 def test_slice_has_no_dropout():
     """Every dropout rate of the lam_b slice is 0 by the default of the
-    JAX ``_build_lam``, and no configuration of the slice sets one: the
-    port carries no dropout layer."""
-    assert inspect.signature(jbl._build_lam).parameters["dropout"].default == 0.0
-    assert "dropout" not in inspect.signature(tbl._build_lam).parameters
+    JAX ``_build_lam``, which the port's copies, and no configuration of
+    the slice sets one: every dropout layer of the built slice is the
+    identity (rate 0), and none is torch's."""
+    for build in (jbl._build_lam, tbl._build_lam):
+        assert inspect.signature(build).parameters["dropout"].default == 0.0
     model = tbl._build_lam(build_vit=_port_vit, **TOY_LAM)
     assert not [m for m in model.modules()
                 if isinstance(m, torch.nn.modules.dropout._DropoutNd)]
+    rates = [m.rate for m in model.modules() if isinstance(m, tcommon.Dropout)]
+    assert rates and set(rates) == {0.0}
 
 
 def test_remat_policies():
