@@ -11,8 +11,10 @@ episode engine on a synthetic COCO root), the evaluation protocols
 (``validate --checkpoint``'s fold x rerun protocol on that run, PASCAL-5i
 on a synthetic VOC root, the COCO test protocol), the images path, and
 the ResNet / VGG baselines (PANet, PPNet, DENet, BAM, HDMNet) through
-``cli validate``, DCAMA and FPTrans, and the LAM variants of 19 files of
-``parameters/``.
+``cli validate``, DCAMA and FPTrans, the LAM variants of 19 files of
+``parameters/`` and the last five files (the plain ViT encoders, the
+multi-level LAM on MiT-b0, the feature-pyramid neck and extractor, the
+similarity baseline, the Hugging Face extractor).
 
 Run from the repository root, with no arguments:
 
@@ -339,7 +341,28 @@ reports):
    --checkpoint --folds i``, each grid point from the checkpoint of a
    run of its model block (a run of its own on VARIANT_EXTRA_FROM's
    set-up where no trainval file has the block), with a ``data_dir``
-   (C12).
+   (C12);
+31. the last five files of ``parameters/`` (``phase_last_files``), each
+   at its published width with seeded weights: ``coco20i/mae_noembs.yaml``
+   (``lam_mae_b``, the ViT-MAE-B encoder in the forward pass, bf16, 480
+   px) and ``other/3_NewTraining_ViT.yaml`` (fp32, 512 wide,
+   ``backbone_lr``, focal + dice + ``prompt_contrastive``, C24) through
+   ``cli run`` on phase 25's image root; ``other/COCO_multilevel.yaml``
+   (``multilevel_lam`` on MiT-b0 at 1024 px, frozen) through ``cli run``
+   there; ``cli generate_feature_pyramids --encoder resnet50`` on phase
+   28's VOC root (C25), then ``pascal/PASCAL_256_pyramids.yaml`` through
+   ``cli run`` on those caches: LAST_STEPS steps each at one of the file's
+   tuples (LAST_RUNS), LAST_VAL validation episodes a set; each run's
+   losses, step times, peak memory and K7 launches by call site, its first
+   episode's loss card against CPU in fp32 within LAST_LOSS_RTOL and its
+   logits (``variant_logits_agree``); K7 at mae_noembs's mask decoder on
+   every step, each site's first call held against ``twoway_plain`` by
+   the bf16 rule; ``validation/COCO/cosine.yaml`` through ``cli validate``
+   as it stands on the image root (it raises, C22) and on phase 20's
+   embedding caches (fold 0, LAST_VAL episodes a set), one N1K1 episode
+   card against CPU; ``cli generate_embeddings_huggingface`` on a seeded
+   ViT-B checkpoint directory the phase writes (LAST_HF_IMAGES images),
+   one cache against the CPU's fp32 encoder.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. The models are the repo's LAM
@@ -3211,7 +3234,7 @@ def phase_workflow() -> dict:
 # steps and MAE_VAL validation episodes a set
 MAE_YAML = "parameters/trainval/coco20i/mae.yaml"
 MAE_DIR = "build/mae_run"
-MAE_IMAGES, MAE_STEPS, MAE_VAL = 288, 48, 64
+MAE_IMAGES, MAE_STEPS, MAE_VAL = 288, 48, 32
 MAE_PROFILE_STEPS = 4
 # the card's Run against the CPU's, fp32, from the same weights on the same
 # batches at mae.yaml's learning rate held constant (its 1000 warm-up steps
@@ -3668,7 +3691,7 @@ EVAL_DIR = "build/eval_run"
 # (1 rerun: each fold's sets, keys and episodes kept, phase 21 halved to
 # keep the script inside its time limit; the 5-shot sets, which wait on
 # the thread loader, at EVAL_VAL_5SHOT episodes for the same reason)
-EVAL_RERUNS, EVAL_VAL, EVAL_PARITY_VAL = 1, 64, 16
+EVAL_RERUNS, EVAL_VAL, EVAL_PARITY_VAL = 1, 32, 16
 EVAL_VAL_5SHOT = 16
 EVAL_VAL_BY_SET = {"val_coco20i_N1K5": EVAL_VAL_5SHOT,
                    "val_coco20i_N2K5": EVAL_VAL_5SHOT}
@@ -3679,7 +3702,7 @@ EVAL_MODEL = {"example_class_attention": [True]}
 # PASCAL-5i cut to one epoch of VOC_STEPS steps and VOC_VAL episodes a set
 PASCAL_YAML = "parameters/trainval/pascal/mae.yaml"
 VOC_DIR = "build/voc_run"
-VOC_IMAGES, VOC_STEPS, VOC_VAL = 200, 32, 64
+VOC_IMAGES, VOC_STEPS, VOC_VAL = 200, 32, 32
 # phase 23: the test protocol at TEST_BATCH queries a call; the card
 # against the CPU on TEST_PARITY_QUERIES query images
 TEST_DIR = "build/test_run"
@@ -3820,9 +3843,34 @@ def validation_recorder(records: list, spans: list = None):
     return kept
 
 
-def site_counter(counts: dict):
-    """A ``build_on_device`` that tags the model's two TwoWayTransformer
-    call sites: forward hooks add each call's K7 launches to
+def twoway_sites(model, counts: dict, site_of: dict) -> None:
+    """Forward hooks on every TwoWayTransformer under the model's prompt
+    encoder and mask decoder (a multi-level model has one a level): each
+    call adds its K7 launches to ``counts[site]``, and ``site_of["now"]``
+    names the site while it runs."""
+    for site in ("prompt_encoder", "mask_decoder"):
+        for module in getattr(model, site).modules():
+            if not isinstance(module, TwoWayTransformer):
+                continue
+            before = {}
+
+            def pre(mod, inputs, before=before, site=site):
+                before["n"] = fa.LAUNCHES.get("fused_twoway", 0)
+                site_of["now"] = site
+
+            def post(mod, inputs, output, before=before, site=site):
+                counts[site] = (counts.get(site, 0)
+                                + fa.LAUNCHES.get("fused_twoway", 0)
+                                - before["n"])
+                site_of["now"] = None
+
+            module.register_forward_pre_hook(pre)
+            module.register_forward_hook(post)
+
+
+def site_counter(counts: dict, site_of: dict = None):
+    """A ``build_on_device`` that tags the model's TwoWayTransformer call
+    sites (``twoway_sites``): each call adds its K7 launches to
     ``counts[site]``."""
     from labelanything_tpu_torch.experiment import run as run_mod
 
@@ -3830,20 +3878,7 @@ def site_counter(counts: dict):
 
     def tagged(*args, **kw):
         model = build(*args, **kw)
-        for site in ("prompt_encoder", "mask_decoder"):
-            module = getattr(model, site).transformer
-            before = {}
-
-            def pre(mod, inputs, before=before):
-                before["n"] = fa.LAUNCHES.get("fused_twoway", 0)
-
-            def post(mod, inputs, output, before=before, site=site):
-                counts[site] = (counts.get(site, 0)
-                                + fa.LAUNCHES.get("fused_twoway", 0)
-                                - before["n"])
-
-            module.register_forward_pre_hook(pre)
-            module.register_forward_hook(post)
+        twoway_sites(model, counts, {} if site_of is None else site_of)
         return model
 
     return tagged
@@ -4914,7 +4949,7 @@ def phase_crossdomain() -> dict:
 # ResNet-50 at 417; PANet: VGG16 at 417), seeded weights, fp32 (the files
 # set no dtype): (model, file, the sets kept, the root)
 BASELINE_DIR = "build/baselines_run"
-BASELINE_VAL = 16                 # episodes a set (the files': 1000)
+BASELINE_VAL = 8                  # episodes a set (the files': 1000)
 BASELINE_VOC_IMAGES = 200
 BASELINE_FILES = (
     ("bam", "parameters/validation/COCO/bam_1shot.yaml",
@@ -5296,7 +5331,7 @@ def phase_swin_vit_baselines() -> dict:
 # 1024 px (64 x 64; VARIANT_CATEGORIES COCO categories).
 VARIANT_DIR = "build/variants_run"
 VARIANT_CARD = "cuda"        # the device measured against the CPU
-VARIANT_STEPS, VARIANT_VAL = 3, 2
+VARIANT_STEPS, VARIANT_VAL = 2, 2
 VARIANT_TUPLE = [1, 1, 2]
 VARIANT_LOSS_RTOL = 2e-3
 VARIANT_IMAGES_1024 = 64
@@ -5663,6 +5698,419 @@ def phase_lam_variants() -> dict:
     return path_launches
 
 
+# phase 31: the last five files of parameters/, each at its published
+# width with seeded weights. LAST_RUNS: (file, root, tuple) of each ``cli
+# run`` (LAST_STEPS steps, LAST_VAL validation episodes a set); the first
+# episode of the first batch goes through the fp32 model on the card and
+# on the CPU (loss within LAST_LOSS_RTOL, logits by variant_logits_agree).
+LAST_DIR = "build/last_files_run"
+LAST_CARD = "cuda"           # the device measured against the CPU
+LAST_STEPS, LAST_VAL = 3, 2
+LAST_LOSS_RTOL = 1e-5
+LAST_RUNS = (
+    ("trainval/coco20i/mae_noembs.yaml", "images", [2, 1, 2]),
+    ("trainval/other/3_NewTraining_ViT.yaml", "images", [2, 2, 4]),
+    ("trainval/other/COCO_multilevel.yaml", "images", [2, 1, 2]),
+    ("trainval/pascal/PASCAL_256_pyramids.yaml", "pyramids", [2, 1, 4]),
+)
+LAST_K7 = "trainval/coco20i/mae_noembs.yaml"
+LAST_COSINE = "parameters/validation/COCO/cosine.yaml"
+LAST_HF_IMAGES = 16
+# Hugging Face's google/vit-base-patch16-224-in21k config, the layout the
+# extractor sizes StandardViT from
+LAST_HF_CONFIG = dict(hidden_size=768, num_hidden_layers=12,
+                      num_attention_heads=12, intermediate_size=3072,
+                      image_size=224, patch_size=16, layer_norm_eps=1e-12)
+
+
+def last_cli_run(path: str, cfg: dict, out: str) -> dict:
+    """``cli run`` of ``cfg`` (``path`` cut to size) on the card: the
+    steps' times, losses and K7 launches by call site, the first call at
+    each site recorded; then the first episode of the first batch through
+    the fp32 model on the card and on the CPU from the run's seeded
+    weights. Prints one line; returns the launches and the recorded K7
+    calls."""
+    from labelanything_tpu_torch.api import build_on_device
+    from labelanything_tpu_torch.experiment import run as run_mod
+    from labelanything_tpu_torch.parallel.train_step import loss_inputs
+    from labelanything_tpu_torch.utils.config import expand_experiment
+
+    label = path.split("/")[-1]
+    t0 = time.perf_counter()
+    params = write_params(cfg, f"{out}.yaml")
+    flat = expand_experiment(cfg)[0]
+    sites, site_of, calls, steps, first = {}, {"now": None}, {}, [], {}
+    make_step = run_mod.make_train_step
+    kernel = ft.fused_twoway_transformer
+
+    def recorded_kernel(keys, queries, key_pe, params, depth, heads, *a):
+        site = site_of["now"]
+        if site is not None and site not in calls:
+            calls[site] = dict(keys=keys.detach().clone(),
+                               queries=queries.detach().clone(),
+                               pe=key_pe.detach().clone(),
+                               params=[p.detach().clone() for p in params],
+                               depth=depth, heads=heads)
+        return kernel(keys, queries, key_pe, params, depth, heads, *a)
+
+    def timed_make(**kw):
+        step = make_step(**kw)
+
+        def timed(state, batch, gt, generator, *args, **k):
+            if not first:
+                first.update(batch={key: ({s: a.detach().cpu().clone()
+                                           for s, a in v.items()}
+                                          if isinstance(v, dict) else
+                                          v.detach().cpu().clone())
+                                    for key, v in batch.items()},
+                             gt=torch.as_tensor(gt).cpu().clone(),
+                             rows=generator.get_state().clone())
+            before = dict(sites)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = step(state, batch, gt, generator, *args, **k)
+            torch.cuda.synchronize()
+            steps.append(dict(ms=(time.perf_counter() - t) * 1e3,
+                              loss=float(result[1]["loss"]),
+                              k7={k2: sites.get(k2, 0) - before.get(k2, 0)
+                                  for k2 in ("prompt_encoder",
+                                             "mask_decoder")}))
+            return result
+        return timed
+
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(run_mod, "build_on_device",
+                           site_counter(sites, site_of)), \
+            mock.patch.object(run_mod, "make_train_step", timed_make), \
+            mock.patch.object(ft, "fused_twoway_transformer",
+                              recorded_kernel):
+        t1 = time.perf_counter()
+        rc = cli_main(["run", "--parameters", params, "--out-dir", out,
+                       "--device", LAST_CARD], f"{out}.out")
+        t_cli = time.perf_counter() - t1
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(rc == 0, f"{label}: cli run returned {rc}")
+    lines = read_jsonl(f"{out}/metrics.jsonl")
+    losses = [r["train/loss"] for r in lines if "train/loss" in r]
+    check(len(steps) == LAST_STEPS and len(losses) == LAST_STEPS
+          and all(np.isfinite(losses)), f"{label}: {len(steps)} steps, "
+          f"losses {losses}")
+    vals = {k: v for r in lines for k, v in r.items()
+            if k.startswith("validate/") and k.endswith("miou")}
+    check(vals and all(np.isfinite(list(vals.values()))),
+          f"{label}: validation {vals}")
+
+    # the first episode, fp32, card against CPU, from the run's weights
+    block = dict(flat["model"], dtype="float32")
+    block.setdefault("custom_preprocess", flat["dataset"].get(
+        "common", {}).get("custom_preprocess", True))
+    loss_params = flat["train_params"].get("loss", {})
+    episode = {k: ({s: a[:1] for s, a in v.items()} if isinstance(v, dict)
+                   else v[:1]) for k, v in first["batch"].items()}
+    parity = {}
+    for side, dev in (("card", LAST_CARD), ("cpu", "cpu")):
+        model = build_on_device(block, dev, seed=flat.get("seed", 42))
+        loss_mod = LabelAnythingLoss(
+            loss_params.get("components", {"focal": {"weight": 1.0}}),
+            class_weighting=loss_params.get("class_weighting", False)
+        ).to(dev)
+        rows = torch.Generator()
+        rows.set_state(first["rows"])
+        batch = {k: ({s: a.to(dev) for s, a in v.items()}
+                     if isinstance(v, dict) else v.to(dev))
+                 for k, v in episode.items()}
+        with torch.no_grad():
+            result = model.train()(batch, rows)
+            value = loss_mod(loss_inputs(result, batch),
+                             first["gt"][:1].to(dev))
+        parity[side] = (float(value["value"]), result[ResultDict.LOGITS])
+        del model
+    torch.cuda.empty_cache()
+    (l_card, logits_card), (l_cpu, logits_cpu) = parity["card"], parity["cpu"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    check(rel <= LAST_LOSS_RTOL, f"{label}: first loss card {l_card} / cpu "
+          f"{l_cpu}")
+    diff, scale, agree, decisive = variant_logits_agree(
+        logits_card, logits_cpu, label)
+    m = flat["model"]
+    step_ms = [round(st["ms"], 1) for st in steps]
+    print(f"last files: {label} ({m.get('name')}, {m.get('image_size')} px, "
+          f"{m.get('dtype', 'float32')}) cli run of {LAST_STEPS} steps at "
+          f"{flat['dataloader']['possible_batch_example_nums'][0]}: step ms "
+          f"{step_ms}, the CLI call {t_cli:.1f} s, peak {peak:.2f} GiB; "
+          f"losses " + ", ".join(f"{x:.5f}" for x in losses)
+          + f"; K7 by call site and step "
+          f"{[st['k7'] for st in steps]}; launches {nonzero(launches)}; "
+          f"validation " + ", ".join(f"{k} {v:.4f}"
+                                     for k, v in sorted(vals.items()))
+          + f"; the first episode in fp32: loss card {l_card:.7f} / CPU "
+          f"{l_cpu:.7f} (relative {rel:.2e}), logits "
+          f"{tuple(logits_card.shape)} max |diff| {diff:.3g} at scale "
+          f"{scale:.3g}, argmax {agree:.6f} (decisive pixels {decisive:.6f},"
+          f" all agreeing); {time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, steps=steps, calls=calls)
+
+
+def hold_k7_sites(calls: dict) -> dict:
+    """Each recorded K7 call against ``twoway_plain`` on the same bf16
+    inputs by the bf16 rule (|kernel - plain| <= 4 x |plain bf16 - plain
+    fp32| + 1e-6, worst element, per output). Launches made here are not
+    the path's."""
+    held = {}
+    for site, c in calls.items():
+        args = (c["params"], c["depth"], c["heads"])
+        with torch.no_grad():
+            got = ft.fused_twoway_transformer(c["keys"], c["queries"],
+                                              c["pe"], *args)
+            ref = ft.twoway_plain(c["keys"], c["queries"], c["pe"], *args)
+            ref32 = ft.twoway_plain(c["keys"].float(), c["queries"].float(),
+                                    c["pe"].float(), *args)
+        worst = {}
+        for name, x, y, y32 in zip(("queries", "keys"), got, ref, ref32):
+            err = (x.float() - y.float()).abs().max().item()
+            floor = (y.float() - y32).abs().max().item()
+            check(x.dtype == torch.bfloat16 and err <= 4 * floor + 1e-6,
+                  f"fused_twoway at mae_noembs's {site}: bf16 {name} error "
+                  f"{err} > 4 x floor {floor}")
+            worst[name] = dict(err=err, floor=floor)
+        held[site] = dict(instances=int(c["keys"].shape[0]),
+                          image_tokens=int(c["keys"].shape[1]),
+                          tokens=int(c["queries"].shape[1]),
+                          max_abs_err_bf16=max(w["err"]
+                                               for w in worst.values()),
+                          bf16_floor=max(w["floor"] for w in worst.values()))
+        print(f"kernel fused_twoway at mae_noembs's {site}: "
+              f"{held[site]['instances']} instances x "
+              f"{held[site]['image_tokens']} image tokens x "
+              f"{held[site]['tokens']} tokens, bf16 err "
+              f"{held[site]['max_abs_err_bf16']:.3g} (floor "
+              f"{held[site]['bf16_floor']:.3g})")
+    return held
+
+
+def last_cosine(images: dict) -> None:
+    """``validation/COCO/cosine.yaml``: as it stands its sets read images
+    and the model, which has no encoder, raises (C22); on phase 20's
+    embedding caches ``cli validate`` runs fold 0, and one batch goes
+    through the model on the card and on the CPU."""
+    from labelanything_tpu_torch.experiment import Run
+    from labelanything_tpu_torch.train.substitutor import \
+        divide_query_examples
+    from labelanything_tpu_torch.utils.config import expand_experiment
+
+    t0 = time.perf_counter()
+    cfg = protocol_config(LAST_COSINE, images, LAST_VAL)
+    params = write_params(cfg, f"{LAST_DIR}/cosine_images.yaml")
+    try:
+        cli_main(["validate", "--parameters", params, "--reruns", "1",
+                  "--out-dir", f"{LAST_DIR}/cosine_images", "--device",
+                  LAST_CARD], f"{LAST_DIR}/cosine_images.out")
+        raised = None
+    except ValueError as err:
+        raised = str(err)
+    check(raised is not None and "Encoder is None" in raised,
+          f"cosine.yaml on images: {raised}")
+    paths = mae_paths()
+    if not os.path.exists(paths["instances_path"]):
+        from labelanything_tpu_torch.data.synthetic_coco import \
+            write_synthetic_coco
+
+        paths = write_synthetic_coco(f"{MAE_DIR}/coco", seed=SEED,
+                                     num_images=MAE_IMAGES)
+        paths = {k: paths[k] for k in ("instances_path", "emb_dir")}
+    cfg = protocol_config(LAST_COSINE, paths, LAST_VAL)
+    params = write_params(cfg, f"{LAST_DIR}/cosine.yaml")
+    fa.reset_launches()
+    t1 = time.perf_counter()
+    rc = cli_main(["validate", "--parameters", params, "--reruns", "1",
+                   "--out-dir", f"{LAST_DIR}/cosine", "--device", LAST_CARD],
+                  f"{LAST_DIR}/cosine.out")
+    t_cli = time.perf_counter() - t1
+    check(rc == 0, f"cosine.yaml: cli validate returned {rc}")
+    check(not nonzero(dict(fa.LAUNCHES)), f"cosine.yaml: launches "
+          f"{nonzero(dict(fa.LAUNCHES))}")
+    with open(f"{LAST_DIR}/cosine.out") as f:
+        text = f.read()
+    metrics = json.loads(text[text.index("{"):])
+    mious = {k: v for k, v in metrics.items() if k.endswith("_miou")}
+    check(len(mious) == 4 and all(np.isfinite(list(mious.values()))),
+          f"cosine.yaml: metrics {metrics}")
+    flat = expand_experiment(cfg)[0]
+    run = Run().init(flat, f"{LAST_DIR}/cosine_batch", device=LAST_CARD)
+    loader = run.val_loaders["val_coco20i_N1K1"]
+    (batch, _), _ = next(iter(loader))
+    device_batch, _ = run._device_batch(batch, example_rows=slice(1, None))
+    inputs, _ = divide_query_examples(device_batch)
+    inputs = {k: v[:1] for k, v in inputs.items()}     # its first episode
+    with torch.no_grad():
+        gpu = run.state.model(inputs)[ResultDict.LOGITS]
+        cpu = run.state.model.cpu()({k: v.cpu() for k, v in inputs.items()})[
+            ResultDict.LOGITS]
+    run.close()
+    diff, scale, agree, decisive = variant_logits_agree(gpu, cpu,
+                                                        "cosine.yaml")
+    print(f"last files: cosine.yaml on images raises ({raised!r}, C22); on "
+          f"phase 20's caches cli validate fold 0, {LAST_VAL} episodes a "
+          f"set, {t_cli:.1f} s: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sorted(mious.items()))
+          + f"; one N1K1 episode {tuple(gpu.shape)} card / CPU max |diff| "
+          f"{diff:.3g} at scale {scale:.3g}, argmax {agree:.6f}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def last_feature_pyramids(voc_dir: str) -> str:
+    """``cli generate_feature_pyramids --encoder resnet50`` on the VOC
+    root's JPEGs (seeded weights, 384 px, fp32): a cache a name (C25), one
+    against the CPU's backbone on the same frame. Returns the caches'
+    directory."""
+    import shutil
+
+    from labelanything_tpu_torch.data.image_io import read_rgb
+    from labelanything_tpu_torch.models.pyramid_encoders import build_resnet50
+    from labelanything_tpu_torch.preprocess import load_one, normalize
+    from labelanything_tpu_torch.utils.safetensors import load_file
+
+    out = f"{LAST_DIR}/pyramids"
+    shutil.rmtree(out, ignore_errors=True)
+    images = sorted(os.listdir(f"{voc_dir}/JPEGImages"))
+    t0 = time.perf_counter()
+    rc = cli_main(["generate_feature_pyramids", "--encoder", "resnet50",
+                   "--directory", f"{voc_dir}/JPEGImages", "--outfolder",
+                   out, "--device", LAST_CARD], f"{LAST_DIR}/pyramids.out")
+    t_cli = time.perf_counter() - t0
+    check(rc == 0, f"generate_feature_pyramids returned {rc}")
+    with open(f"{LAST_DIR}/pyramids.out") as f:
+        rate = json.loads(f.read().strip().splitlines()[-1])[
+            "images_per_second"]
+    names = sorted(os.listdir(out))
+    check(names == sorted(n[:-4] + ".safetensors" for n in images),
+          f"generate_feature_pyramids: {len(names)} caches for "
+          f"{len(images)} images, e.g. {names[:2]}")
+    name = images[0][:-4]
+    _, frame, hw = load_one((name, read_rgb(f"{voc_dir}/JPEGImages/"
+                                            f"{images[0]}")), 384, True)
+    backbone = build_resnet50().eval()
+    init_weights(backbone, 0)
+    with torch.no_grad():
+        want = backbone(normalize(torch.from_numpy(frame)[None],
+                                  torch.tensor([hw])))
+    got = load_file(f"{out}/{name}.safetensors")
+    worst = {}
+    for stage, ref in want.items():
+        ref = ref[0].permute(2, 0, 1)
+        rel = float((got[stage] - ref).norm() / ref.norm())
+        check(rel <= 1e-4, f"generate_feature_pyramids: {name} {stage} "
+              f"against the CPU: relative L2 {rel}")
+        worst[stage] = rel
+    print(f"last files: generate_feature_pyramids resnet50 fp32 at 384 px on "
+          f"{len(images)} VOC JPEGs: {rate:.2f} images/s (the CLI call "
+          f"{t_cli:.1f} s), caches named as the images (C25); {name}'s "
+          f"stages against the CPU, relative L2 " + ", ".join(
+              f"{k} {v:.2e}" for k, v in worst.items()))
+    return out
+
+
+def last_hf_extractor(images: dict) -> None:
+    """``cli generate_embeddings_huggingface`` (bf16, 480 px) on a seeded
+    ViT-B checkpoint directory written here (``config.json`` and the
+    port's safetensors writer), LAST_HF_IMAGES images of the image root;
+    one cache against the CPU's fp32 encoder on the same frame."""
+    import shutil
+
+    from labelanything_tpu_torch.data.image_io import read_rgb
+    from labelanything_tpu_torch.models.vit import StandardViT
+    from labelanything_tpu_torch.preprocess import load_one, normalize
+    from labelanything_tpu_torch.utils.safetensors import load_file, save_file
+
+    ckpt = f"{LAST_DIR}/vit_in21k"
+    out = f"{LAST_DIR}/hf_embeddings"
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(ckpt, exist_ok=True)
+    c = LAST_HF_CONFIG
+    with open(f"{ckpt}/config.json", "w") as f:
+        json.dump(c, f)
+    grid = c["image_size"] // c["patch_size"]
+    vit = StandardViT(patch_size=c["patch_size"], embed_dim=c["hidden_size"],
+                      depth=c["num_hidden_layers"],
+                      num_heads=c["num_attention_heads"],
+                      mlp_ratio=c["intermediate_size"] / c["hidden_size"],
+                      pretrain_grid=grid).eval()
+    init_weights(vit, SEED)
+    save_file(vit.state_dict(), f"{ckpt}/model.safetensors")
+    t0 = time.perf_counter()
+    rc = cli_main(["generate_embeddings_huggingface", "--model_name", ckpt,
+                   "--directory", images["img_dir"], "--instances_path",
+                   images["instances_path"], "--outfolder", out,
+                   "--limit", str(LAST_HF_IMAGES), "--device", LAST_CARD],
+                  f"{LAST_DIR}/hf.out")
+    t_cli = time.perf_counter() - t0
+    check(rc == 0, f"generate_embeddings_huggingface returned {rc}")
+    with open(f"{LAST_DIR}/hf.out") as f:
+        rate = json.loads(f.read().strip().splitlines()[-1])[
+            "images_per_second"]
+    caches = sorted(os.listdir(out))
+    check(len(caches) == LAST_HF_IMAGES, f"{len(caches)} caches")
+    with open(images["instances_path"]) as f:
+        first = json.load(f)["images"][0]
+    item = (first["id"], read_rgb(f"{images['img_dir']}/"
+                                  f"{first['file_name']}"))
+    _, frame, hw = load_one(item, 480, True)
+    with torch.no_grad():
+        want = vit(normalize(torch.from_numpy(frame)[None],
+                             torch.tensor([hw])))[0]
+    got = load_file(f"{out}/{first['id']:012d}.safetensors")["embedding"]
+    check(tuple(got.shape) == (768, 30, 30) and torch.isfinite(got).all(),
+          f"generate_embeddings_huggingface: cache {tuple(got.shape)}")
+    rel = float((got.permute(1, 2, 0) - want).norm() / want.norm())
+    check(rel <= EMBED_BF16_REL_L2, f"generate_embeddings_huggingface: "
+          f"image {first['id']}'s cache against the CPU: relative L2 {rel}")
+    print(f"last files: generate_embeddings_huggingface (ViT-B/16 of an "
+          f"in21k config, position table 14 x 14 to 30 x 30) bf16 on "
+          f"{LAST_HF_IMAGES} images at 480 px: {rate:.2f} images/s (the CLI "
+          f"call {t_cli:.1f} s); image {first['id']}'s cache against the "
+          f"CPU's fp32 encoder: relative L2 {rel:.3e}")
+
+
+def phase_last_files() -> tuple:
+    """Phase 31: the last five files of ``parameters/`` at their published
+    widths (see the module docstring). Returns (the launches of the
+    paths, K7's mae_noembs sites held against the twin)."""
+    t0 = time.perf_counter()
+    roots = baseline_roots()
+    images, voc_dir = roots["coco"], roots["voc"]["data_dir"]
+    images = {k: images[k] for k in ("instances_path", "img_dir")}
+    pyramids = last_feature_pyramids(voc_dir)
+    path_launches, held = {}, {}
+    for path, root, tuple_ in LAST_RUNS:
+        paths = (images if root == "images"
+                 else {"data_dir": voc_dir, "emb_dir": pyramids})
+        cfg = variant_config(path, paths)
+        cfg.pop("other_grids", None)
+        cfg["parameters"]["dataloader"].update(
+            num_steps=[LAST_STEPS], possible_batch_example_nums=[[tuple_]])
+        for d in cfg["parameters"]["dataset"]["datasets"].values():
+            if "val_num_samples" in d:
+                d["val_num_samples"] = [LAST_VAL]
+        out = last_cli_run(path, cfg, f"{LAST_DIR}/{path.split('/')[-1][:-5]}")
+        for k, v in out["launches"].items():
+            path_launches[k] = path_launches.get(k, 0) + v
+        k7 = [st["k7"] for st in out["steps"]]
+        if path == LAST_K7:
+            check(all(s["mask_decoder"] >= 1 for s in k7),
+                  f"mae_noembs: K7 at the mask decoder by step {k7}")
+            held = hold_k7_sites(out["calls"])
+        else:
+            check(not nonzero(out["launches"]), f"{path}: fp32 launches "
+                  f"{nonzero(out['launches'])}")
+    last_cosine(images)
+    last_hf_extractor(images)
+    print(f"last files: launches on these paths {nonzero(path_launches)}; "
+          f"phase 31 took {time.perf_counter() - t0:.1f} s")
+    return path_launches, held
+
+
 def main() -> None:
     card = phase_card()
     kind = torch.cuda.get_device_name(0)
@@ -5735,6 +6183,10 @@ def main() -> None:
     clock("29")
     paths.append(phase_lam_variants())
     clock("30")
+    launches, mae_noembs_sites = phase_last_files()
+    paths.append(launches)
+    kernel_stats[TWOWAY["name"]]["mae_noembs_sites"] = mae_noembs_sites
+    clock("31")
     print(f"profiler passes made again for a lost guard: "
           f"{time_kernels.guard_overruns}")
     summary = []

@@ -8,6 +8,10 @@ reference: label_anything/cli.py:12-371), on ``argparse``.
     python -m labelanything_tpu_torch.cli test --parameters FILE.yaml
     python -m labelanything_tpu_torch.cli generate_embeddings \\
         --directory IMAGES --instances_path instances.json
+    python -m labelanything_tpu_torch.cli generate_embeddings_huggingface \\
+        --model_name HF_CHECKPOINT_DIR --directory IMAGES
+    python -m labelanything_tpu_torch.cli generate_feature_pyramids \\
+        --encoder resnet50 --directory IMAGES
     python -m labelanything_tpu_torch.cli generate_gt --dataset_name coco \\
         --anns_path instances.json --outfolder EMBEDDINGS
     python -m labelanything_tpu_torch.cli preprocess_voc \\
@@ -28,8 +32,7 @@ import pathlib
 import sys
 from typing import List, Optional
 
-NOT_PORTED = ("generate_embeddings_huggingface", "generate_feature_pyramids",
-              "preprocess_clip", "pretrain_pe", "benchmark", "app")
+NOT_PORTED = ("preprocess_clip", "pretrain_pe", "benchmark", "app")
 
 
 def _experiment(args) -> int:
@@ -110,6 +113,35 @@ def _generate_embeddings(args) -> int:
         batch_size=args.batch_size, num_workers=args.num_workers,
         outfolder=args.outfolder, last_block_dir=args.last_block_dir,
         image_size=args.image_size, custom_preprocess=args.custom_preprocess,
+        limit=args.limit, device=args.device)
+    print(json.dumps({"images_per_second": rate}))
+    return 0
+
+
+def _generate_embeddings_huggingface(args) -> int:
+    """Embed an image folder with a local Hugging Face ViT checkpoint (JAX
+    ``generate_embeddings_huggingface``)."""
+    from .preprocess import preprocess_images_to_embeddings_huggingface
+
+    rate = preprocess_images_to_embeddings_huggingface(
+        model_name=args.model_name, directory=args.directory,
+        instances_path=args.instances_path, batch_size=args.batch_size,
+        outfolder=args.outfolder, image_resolution=args.image_resolution,
+        custom_preprocess=args.custom_preprocess, limit=args.limit,
+        device=args.device)
+    print(json.dumps({"images_per_second": rate}))
+    return 0
+
+
+def _generate_feature_pyramids(args) -> int:
+    """Feature-pyramid caches of an image folder (JAX
+    ``generate_feature_pyramids``)."""
+    from .preprocess import preprocess_images_to_feature_pyramids
+
+    rate = preprocess_images_to_feature_pyramids(
+        encoder_name=args.encoder, directory=args.directory,
+        instances_path=args.instances_path, batch_size=args.batch_size,
+        outfolder=args.outfolder, image_resolution=args.image_resolution,
         limit=args.limit, device=args.device)
     print(json.dumps({"images_per_second": rate}))
     return 0
@@ -202,6 +234,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--limit", default=None, type=int)
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=_generate_embeddings,
+                   must_exist=("directory", "instances_path"))
+
+    p = sub.add_parser("generate_embeddings_huggingface",
+                       help="embed an image folder with a local Hugging "
+                            "Face ViT checkpoint")
+    p.add_argument("--model_name", required=True,
+                   help="local checkpoint directory (config.json + weights)")
+    p.add_argument("--directory", required=True)
+    p.add_argument("--instances_path", default=None)
+    p.add_argument("--batch_size", default=8, type=int)
+    p.add_argument("--outfolder", default="data/processed/embeddings")
+    p.add_argument("--image_resolution", default=480, type=int)
+    p.add_argument("--custom_preprocess", dest="custom_preprocess",
+                   action="store_true", default=True)
+    p.add_argument("--square_resize", dest="custom_preprocess",
+                   action="store_false")
+    p.add_argument("--limit", default=None, type=int)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=_generate_embeddings_huggingface,
+                   must_exist=("model_name", "directory", "instances_path"))
+
+    p = sub.add_parser("generate_feature_pyramids",
+                       help="feature-pyramid caches of an image folder")
+    p.add_argument("--encoder", required=True,
+                   help="the pyramid backbone: resnet50 or swin_b")
+    p.add_argument("--directory", required=True)
+    p.add_argument("--instances_path", default=None)
+    p.add_argument("--batch_size", default=4, type=int)
+    p.add_argument("--outfolder", default="data/processed/pyramids")
+    p.add_argument("--image_resolution", default=384, type=int)
+    p.add_argument("--limit", default=None, type=int)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=_generate_feature_pyramids,
                    must_exist=("directory", "instances_path"))
 
     p = sub.add_parser("generate_gt",

@@ -3,8 +3,11 @@ reference: label_anything/models/build_lam.py:96-300).
 
 Builders return modules whose parameters are fp32 and whose compute dtype is
 ``dtype``; weights come from :mod:`..utils.weights` (a seeded init or JAX
-parameters). Ported: a SAM ViT-B, ViT-L or ViT-H encoder, or none (precomputed
-embeddings: ``build_lam_no_vit``); the prompt encoder ``PromptImageEncoder``
+parameters). Ported: a SAM ViT-B, ViT-L or ViT-H encoder, a plain ViT-B
+(MAE, ImageNet-21k, DINO-B/8: ``build_lam_vit_mae_b``, ...), or none
+(precomputed embeddings: ``build_lam_no_vit``, with the ``is_pyramids``
+neck for feature-pyramid caches); the multi-level LAM
+(``build_multilevel_lam``); the prompt encoder ``PromptImageEncoder``
 or "TokenPool" (``PromptImagePoolEncoder``) with its variants; the
 prototype decoder (``few_type`` "Prototype") behind a two-way, one-way or
 identity fusion transformer, or the affinity decoder ("Affinity",
@@ -13,17 +16,21 @@ identity fusion transformer, or the affinity decoder ("Affinity",
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from .affinity_decoder import AffinityDecoder
-from .build_encoder import build_vit_b, build_vit_h, build_vit_l
+from .build_encoder import (build_vit_b, build_vit_b_imagenet_i21k,
+                            build_vit_b_mae, build_vit_dino_b8, build_vit_h,
+                            build_vit_l)
 from .lam import Lam, Neck
 from .mask_decoder import MaskDecoderLam
 from .prompt_encoder import (IdentityClassEncoder, PromptImageEncoder,
                              PromptImagePoolEncoder, RandomMatrixEncoder)
+from .pyramids import PyramidLamNeck
 from .transformer import (AffinityTransformer, IdentityTransformer,
                           OneWayTransformer, TwoWayTransformer)
 
@@ -85,6 +92,20 @@ def _fusion(name: str, embed_dim: int, dtype: torch.dtype,
         dropout=dropout, **extra)
 
 
+def _class_encoder(config: Optional[dict], embed_dim: int,
+                   override: bool = False) -> nn.Module:
+    """The ``class_encoder`` block's module ("RandomMatrixEncoder"), its
+    width the block's ``embed_dim`` or, without one or with ``override``,
+    ``embed_dim``; none: the identity."""
+    if config is None:
+        return IdentityClassEncoder()
+    if config["name"] != "RandomMatrixEncoder":
+        raise NotImplementedError(f"class encoder {config['name']!r} is not "
+                                  f"ported")
+    width = embed_dim if override else config.get("embed_dim", embed_dim)
+    return RandomMatrixEncoder(config["bank_size"], width)
+
+
 def build_mask_decoder(embed_dim: int, decoder_attention_downsample_rate: int,
                        few_type: str = "Prototype",
                        fusion_transformer: str = "TwoWayTransformer",
@@ -130,6 +151,11 @@ def build_mask_decoder(embed_dim: int, decoder_attention_downsample_rate: int,
     raise NotImplementedError(f"few_type {few_type!r} not implemented")
 
 
+APPLY_MASKS_NOT_PORTED = (
+    "apply_masks=True is not ported: the port's attention takes no masks, "
+    "as the reference's masking is a no-op (see models.common.Attention)")
+
+
 def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
                use_vit: bool = True, image_embed_dim: int = SAM_EMBED_DIM,
                embed_dim: int = SAM_EMBED_DIM, image_size: int = 1024,
@@ -159,7 +185,9 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
                segment_example_logits: bool = False,
                embeddings_per_example: Optional[int] = None,
                embedding_extraction: Optional[str] = None,
-               dropout: float = 0.0) -> Lam:
+               dropout: float = 0.0, is_pyramids: bool = False,
+               intermediate_channel_sizes: Optional[Sequence[int]] = None
+               ) -> Lam:
     """Architecture factory (reference: build_lam.py:96-235).
     ``remat_encoder`` is the image encoder's ``remat``. ``structured_fusion``,
     ``mask_factor`` and ``shared_keys`` choose among exact forms of the
@@ -171,12 +199,12 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
     kernels (``models/image_encoder.py``), off by default. The arguments
     after them are the JAX ``_build_lam``'s, with its defaults; one
     embedding per example implies ``segment_example_logits`` and the
-    converse (JAX l.188-191). ``prompt_encoder`` is None or "TokenPool"."""
+    converse (JAX l.188-191). ``prompt_encoder`` is None or "TokenPool".
+    ``is_pyramids``: the neck is :class:`.pyramids.PyramidLamNeck` over
+    stages of ``intermediate_channel_sizes`` channels, and the model reads
+    ``{"stageN": ...}`` caches (JAX l.193-199)."""
     if apply_masks:
-        raise NotImplementedError(
-            "apply_masks=True is not ported: the port's attention takes no "
-            "masks, as the reference's masking is a no-op (see "
-            "models.common.Attention)")
+        raise NotImplementedError(APPLY_MASKS_NOT_PORTED)
     dtype = model_dtype(dtype)
     grid = image_size // vit_patch_size
 
@@ -190,14 +218,7 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
                         image_size=image_size, dtype=dtype,
                         **{k: v for k, v in options.items() if v})
 
-    if class_encoder is not None:
-        if class_encoder["name"] != "RandomMatrixEncoder":
-            raise NotImplementedError(f"class encoder {class_encoder['name']!r}"
-                                      f" is not ported")
-        class_encoder_mod = RandomMatrixEncoder(
-            class_encoder["bank_size"], class_encoder.get("embed_dim", embed_dim))
-    else:
-        class_encoder_mod = IdentityClassEncoder()
+    class_encoder_mod = _class_encoder(class_encoder, embed_dim)
 
     if segment_example_logits and embeddings_per_example is None:
         embeddings_per_example = 1
@@ -209,8 +230,12 @@ def _build_lam(build_vit=None, use_vit_sam_neck: bool = True,
     pe_cls = (PromptImagePoolEncoder if prompt_encoder == "TokenPool"
               else PromptImageEncoder)
 
-    neck = (None if image_embed_dim == embed_dim
-            else Neck(image_embed_dim, embed_dim, dtype=dtype))
+    if is_pyramids:
+        neck = PyramidLamNeck(tuple(intermediate_channel_sizes),
+                              d_model=embed_dim, dtype=dtype)
+    else:
+        neck = (None if image_embed_dim == embed_dim
+                else Neck(image_embed_dim, embed_dim, dtype=dtype))
     prompt_encoder_mod = pe_cls(
         embed_dim=embed_dim, image_embedding_size=(grid, grid),
         input_image_size=(image_size, image_size), mask_in_chans=16,
@@ -256,5 +281,106 @@ def build_lam_vit_h(**kwargs) -> Lam:
     return _build_lam(build_vit_h, **kwargs)
 
 
+def build_lam_vit_mae_b(**kwargs) -> Lam:
+    return _build_lam(build_vit_b_mae, **kwargs)
+
+
+def build_lam_vit_b_imagenet_i21k(**kwargs) -> Lam:
+    return _build_lam(build_vit_b_imagenet_i21k, **kwargs)
+
+
+def build_lam_dino_b8(**kwargs) -> Lam:
+    return _build_lam(build_vit_dino_b8, **kwargs)
+
+
 def build_lam_no_vit(**kwargs) -> Lam:
     return _build_lam(build_vit=None, use_vit=False, **kwargs)
+
+
+def build_multilevel_lam(embed_dims: Sequence[int] = (256, 512, 1024),
+                         image_size: int = 384, class_attention: bool = False,
+                         example_attention: bool = False,
+                         example_class_attention: bool = True,
+                         encoder_attention_downsample_rate: int = 2,
+                         decoder_attention_downsample_rate: int = 2,
+                         classification_layer_downsample_rate: int = 8,
+                         class_encoder: Optional[dict] = None,
+                         segment_example_logits: bool = False,
+                         dropout: float = 0.0, apply_masks: bool = False,
+                         dtype: Union[str, torch.dtype] = torch.float32,
+                         vit_patch_sizes: Sequence[int] = (8, 16, 32),
+                         encoder=None, **ignored):
+    """The multi-level LAM (JAX ``build_lam.py:294-404``; reference:
+    build_lam.py:303-399): one prompt encoder and one decoder a level,
+    sized by ``embed_dims`` at grids ``image_size // vit_patch_sizes``. It
+    reads ``{"stageN": ...}`` caches or, with ``encoder`` ("resnet50",
+    "swin_b", "mit_b0" or a SegFormer-b0 name, or a block with ``name``
+    and ``out_features``), runs that backbone, whose stages then size the
+    levels: ResNet / Swin at strides 8, 16, 32, MiT's four stages at their
+    own strides. The other keys of a model block (``spatial_convs``,
+    ``fusion_transformer``, ...) are not used, as in the JAX builder;
+    ``apply_masks=True`` is refused, as :func:`_build_lam` refuses it."""
+    from .multilevel import (MultiLevelLam, MultiLevelMaskDecoder,
+                             MultiLevelPromptEncoder)
+
+    if apply_masks:
+        raise NotImplementedError(APPLY_MASKS_NOT_PORTED)
+    dtype = model_dtype(dtype)
+    image_encoder = None
+    if encoder is not None:
+        from .pyramid_encoders import (RESNET50_STAGE_DIMS, SWIN_B_STAGE_DIMS,
+                                       build_resnet50, build_swin_b)
+        from .segformer import (MIT_B0_STAGE_DIMS, MIT_STAGE_STRIDES,
+                                build_mit_b0)
+
+        cfg = dict(encoder) if isinstance(encoder, dict) else {"name": encoder}
+        name = cfg.pop("name")
+        out_features = tuple(cfg.get("out_features",
+                                     ("stage2", "stage3", "stage4")))
+        if name == "resnet50":
+            image_encoder = build_resnet50(**cfg)
+            embed_dims = [RESNET50_STAGE_DIMS[s] for s in out_features]
+        elif name == "swin_b":
+            cfg.setdefault("image_size", image_size)
+            image_encoder = build_swin_b(**cfg)
+            embed_dims = [SWIN_B_STAGE_DIMS[s] for s in out_features]
+        elif name == "mit_b0" or "segformer-b0" in name:
+            out_features = tuple(cfg.get("out_features", (
+                "stage1", "stage2", "stage3", "stage4")))
+            cfg["out_features"] = out_features
+            image_encoder = build_mit_b0(**cfg)
+            embed_dims = [MIT_B0_STAGE_DIMS[s] for s in out_features]
+        else:
+            raise ValueError(f"unknown pyramid encoder {name!r}")
+        vit_patch_sizes = (
+            [MIT_STAGE_STRIDES[s] for s in out_features]
+            if name == "mit_b0" or "segformer-b0" in name
+            else (8, 16, 32)[:len(out_features)])
+
+    encoders, decoders = [], []
+    for dim, patch in zip(embed_dims, vit_patch_sizes):
+        grid = image_size // patch
+        encoders.append(PromptImageEncoder(
+            embed_dim=dim, image_embedding_size=(grid, grid),
+            input_image_size=(image_size, image_size), mask_in_chans=16,
+            transformer=_fusion("TwoWayTransformer", dim, dtype,
+                                encoder_attention_downsample_rate, dropout),
+            class_encoder=_class_encoder(class_encoder, dim, override=True),
+            example_class_attention=example_class_attention,
+            class_attention=class_attention,
+            example_attention=example_attention, dtype=dtype,
+            dropout=dropout))
+        decoders.append(MaskDecoderLam(
+            transformer_dim=dim,
+            transformer=_fusion("TwoWayTransformer", dim, dtype,
+                                decoder_attention_downsample_rate, dropout),
+            classification_layer_downsample_rate=(
+                classification_layer_downsample_rate),
+            dtype=dtype, segment_example_logits=segment_example_logits,
+            dropout=dropout))
+    return MultiLevelLam(
+        prompt_encoder=MultiLevelPromptEncoder(encoders),
+        mask_decoder=MultiLevelMaskDecoder(
+            decoders, embed_dims, classification_layer_downsample_rate,
+            segment_example_logits=segment_example_logits, dtype=dtype),
+        image_encoder=image_encoder, image_size=image_size)

@@ -64,10 +64,14 @@ class Lam(nn.Module):
 
     def prepare_embeddings(self, batch: Batch) -> torch.Tensor:
         """(B, N, h, w, D) features of every image of the batch, from
-        precomputed ``embeddings`` or from ``images`` through the encoder."""
+        precomputed ``embeddings`` or from ``images`` through the encoder.
+        A feature-pyramid cache, ``{"stageN": (B, N, h, w, C)}``, is fused
+        by the ``is_pyramids`` neck (JAX ``lam.py:81-126``)."""
         encoder = None
         if BatchKeys.EMBEDDINGS in batch:
             x = batch[BatchKeys.EMBEDDINGS]
+            if isinstance(x, dict):
+                return self._fuse_pyramid(x)
         elif BatchKeys.IMAGES in batch:
             if self.image_encoder is None:
                 # the JAX Lam calls its absent encoder and fails with a
@@ -89,6 +93,13 @@ class Lam(nn.Module):
         if self.neck is not None:
             flat = self.neck(flat)
         return flat.reshape((b, n) + flat.shape[1:])
+
+    def _fuse_pyramid(self, pyramid: Dict[str, torch.Tensor]
+                      ) -> torch.Tensor:
+        b, n = next(iter(pyramid.values())).shape[:2]
+        fused = self.neck({k: v.reshape((b * n,) + v.shape[2:])
+                           for k, v in pyramid.items()})
+        return fused.reshape((b, n) + fused.shape[1:])
 
     @staticmethod
     def prepare_prompts(batch: Batch):

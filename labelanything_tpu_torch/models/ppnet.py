@@ -115,16 +115,24 @@ class ResNetSem(nn.Module):
     of each keeps the previous dilation, 1 and 2); with ``quirk_last_relu``
     the last block of layer4 skips its ReLU (only where layer4 has more
     than one block, as the reference's flag reaches blocks 1 on). Layers
-    past ``out_layer`` are not built."""
+    past ``out_layer`` are not built. ``dilated=False`` is torchvision's
+    ResNet with its strides 8, 16, 32 (the pyramid backbone,
+    ``models/pyramid_encoders.py``), whose stage maps :meth:`stages`
+    returns."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
-                 out_layer: str = "layer4", quirk_last_relu: bool = True):
+                 out_layer: str = "layer4", quirk_last_relu: bool = True,
+                 dilated: bool = True):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
         self.bn1 = BN(64)
         # (planes, first stride, dilations of the first block and the rest)
-        stages = [(64, 1, (1, 1)), (128, 2, (1, 1)), (256, 1, (1, 2)),
-                  (512, 1, (2, 4))]
+        if dilated:
+            stages = [(64, 1, (1, 1)), (128, 2, (1, 1)), (256, 1, (1, 2)),
+                      (512, 1, (2, 4))]
+        else:
+            stages = [(64, 1, (1, 1)), (128, 2, (1, 1)), (256, 2, (1, 1)),
+                      (512, 2, (1, 1))]
         cin = 64
         self.stage_names = []
         for si, (planes, stride, (dil0, dil)) in enumerate(stages):
@@ -143,12 +151,17 @@ class ResNetSem(nn.Module):
             if name == out_layer:
                 break
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def stages(self, x: torch.Tensor) -> dict:
+        """NCHW images -> every built layer's map, by name."""
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, padding=1)
+        out = {}
         for name in self.stage_names:
-            x = getattr(self, name)(x)
-        return x
+            x = out[name] = getattr(self, name)(x)
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.stages(x)[self.stage_names[-1]]
 
 
 # ------------------------------------------------------------------ #

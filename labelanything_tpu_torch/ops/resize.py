@@ -1,4 +1,5 @@
-"""Resizes (counterpart of ``labelanything_tpu/ops/resize.py``).
+"""Resizes (counterpart of ``labelanything_tpu/ops/resize.py``; the cubic
+resize is ``jax.image.resize``'s, which the JAX package calls in place).
 
 The JAX version emulates ``F.interpolate(mode="bilinear",
 align_corners=False)`` with two interpolation matmuls for the TPU; here the
@@ -123,6 +124,49 @@ def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
 
     (h, w), (oh, ow) = x.shape[-2:], (int(size[0]), int(size[1]))
     return _take(x, rows(h, oh), rows(w, ow))
+
+
+def cubic_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float32 weights of ``jax.image.resize(method="cubic",
+    antialias=False)`` along one axis: Keys' cubic with a = -0.5 on
+    half-pixel centres (source ``(i + 0.5) n_in / n_out - 0.5``), the taps
+    that fall outside the input dropped and each row's weights divided by
+    their sum, in float32 as XLA computes them. ``F.interpolate(mode=
+    "bicubic")`` is another function: a = -0.75 and edge pixels repeated."""
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    sample = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
+              * inv_scale - np.float32(0.5))
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None])
+    near = ((np.float32(1.5) * x - np.float32(2.5)) * x) * x + np.float32(1)
+    far = ((np.float32(-0.5) * x + np.float32(2.5)) * x
+           - np.float32(4)) * x + np.float32(2)
+    w = np.where(x >= 2, np.float32(0), np.where(x >= 1, far, near))
+    total = w.sum(axis=0, keepdims=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = np.where(np.abs(total) > eps,
+                 w / np.where(total != 0, total, np.float32(1)), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).T.astype(np.float32)
+
+
+def resize_cubic(x: torch.Tensor, size: Sequence[int],
+                 spatial_axes=(1, 2)) -> torch.Tensor:
+    """Cubic resize of the two ``spatial_axes`` of ``x`` (channels-last
+    (N, H, W, C) by default) to ``size``, as ``jax.image.resize(...,
+    method="cubic", antialias=False)`` computes it (:func:`cubic_matrix`
+    per axis, applied by ``einsum``); an axis whose size does not change
+    is left as it is."""
+    out = x
+    for axis, n_out in zip(spatial_axes, size):
+        axis = axis % x.dim()
+        n_in = out.shape[axis]
+        if n_in == int(n_out):
+            continue
+        w = torch.from_numpy(cubic_matrix(n_in, int(n_out))).to(
+            device=x.device, dtype=x.dtype)
+        out = torch.movedim(
+            torch.tensordot(w, torch.movedim(out, axis, 0), dims=1), 0, axis)
+    return out
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:

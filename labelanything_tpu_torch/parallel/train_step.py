@@ -30,7 +30,7 @@ from ..models.common import dropout_generator
 from ..train.metrics import (binary_confusion_matrix, confusion_matrix,
                              confusion_matrix_per_sample)
 from ..train.optim import build_optimizer, named_parameters
-from ..typing import LossDict, ResultDict
+from ..typing import BatchKeys, LossDict, ResultDict
 
 Batch = Dict[str, Any]
 
@@ -89,8 +89,12 @@ def _device_of(module: nn.Module) -> torch.device:
     return next(module.parameters()).device
 
 
-def _to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+def _to_device(batch: Batch, device: torch.device) -> Dict[str, Any]:
+    """Every value on ``device``; a feature-pyramid cache (a dict of
+    stages) stage by stage."""
+    return {k: ({s: torch.as_tensor(a, device=device) for s, a in v.items()}
+                if isinstance(v, dict) else torch.as_tensor(v, device=device))
+            for k, v in batch.items()}
 
 
 def _metrics(aux: dict, preds, gt, num_classes: Optional[int],
@@ -116,6 +120,16 @@ def zero_missing_gradients(optimizer: torch.optim.Optimizer) -> None:
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+
+
+def loss_inputs(result: dict, batch: Batch) -> dict:
+    """The model's result as the loss reads it: with the batch's example
+    flags, which the ``prompt_contrastive`` loss reads and no model's
+    result holds. The JAX step hands its loss the result alone, so that
+    loss raises there (ROADMAP C24)."""
+    if BatchKeys.FLAG_EXAMPLES in result or BatchKeys.FLAG_EXAMPLES not in batch:
+        return result
+    return {**result, BatchKeys.FLAG_EXAMPLES: batch[BatchKeys.FLAG_EXAMPLES]}
 
 
 def make_train_step(num_classes: Optional[int] = None,
@@ -160,7 +174,7 @@ def make_train_step(num_classes: Optional[int] = None,
 
         with dropout_generator(pass_dropout_generator(state, device)):
             result = model(batch, generator)
-        loss_out = state.loss(result, gt)
+        loss_out = state.loss(loss_inputs(result, batch), gt)
         loss = loss_out[LossDict.VALUE]
         # .grad accumulates across calls: backward of (scale * loss) adds
         # scale * dloss/dp to what earlier passes left there

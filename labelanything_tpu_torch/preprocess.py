@@ -21,10 +21,16 @@ and pad bottom-right; the uint8 batch goes to the card, which normalizes
 it with the pad exactly zero. The next batch is queued on the card before
 this batch's output is fetched, and files are written by a thread pool.
 
+:func:`preprocess_images_to_embeddings_huggingface` does the same with a
+plain ViT (``models/vit.py``) read from a local Hugging Face checkpoint
+directory, and :func:`preprocess_images_to_feature_pyramids` writes
+``{"stageN": (C, H, W)}`` caches of the ResNet-50 or Swin-B pyramid
+backbone, which ``is_pyramids`` models read.
+
 Also here: :func:`generate_ground_truths` (ground-truth maps into the
 caches), :func:`preprocess_voc` (VOC masks to class-index PNGs) and
-:func:`rename_coco20i_json`. Not ported yet (ROADMAP A10): the Hugging
-Face ViT, CLIP and feature-pyramid extractors.
+:func:`rename_coco20i_json`. Not ported yet (ROADMAP A10): the CLIP
+extractor.
 """
 
 from __future__ import annotations
@@ -63,7 +69,14 @@ def save_st(tensors: dict, path: str) -> None:
 
 
 def cache_name(image_id) -> str:
-    return f"{str(image_id).zfill(12)}.safetensors"
+    """The cache file of an image: a numeric (COCO) id zero-filled to 12
+    digits, as the reference and the JAX package name it; any other id (a
+    VOC name, ``2007_000032``) as it is, the name the PASCAL datasets read.
+    The JAX package zero-fills every id, so its VOC caches are
+    ``02007_000032.safetensors``, which its datasets do not find (ROADMAP
+    C25)."""
+    name = str(image_id)
+    return f"{name.zfill(12) if name.isdigit() else name}.safetensors"
 
 
 def image_files(instances_path: Optional[str], directory: str
@@ -245,10 +258,7 @@ def preprocess_images_to_embeddings(
     ``device`` (the first CUDA card unless named). The weights come from
     ``checkpoint``, else from ``seed``. Returns images a second
     (reference: preprocess.py:78-141,143-175)."""
-    if (images is None) == (directory is None):
-        raise ValueError("give images or directory, one of them")
-    if images is None:
-        images = image_files(instances_path, directory)
+    images = _images(images, directory, instances_path, limit)
     device = torch.device(device)
     os.makedirs(outfolder, exist_ok=True)
     if last_block_dir:
@@ -278,13 +288,158 @@ def preprocess_images_to_embeddings(
             save_st({"embedding": last_block.transpose(2, 0, 1)},
                     os.path.join(last_block_dir, cache_name(image_id)))
 
-    if limit:
-        images = itertools.islice(images, limit)
     return _stream_encode(images, image_size=image_size,
                           custom_preprocess=custom_preprocess,
                           batch_size=batch_size, num_workers=num_workers,
                           encode_fn=encode_fn, write_fn=write_fn,
                           device=device)
+
+
+def _images(images, directory, instances_path, limit):
+    if (images is None) == (directory is None):
+        raise ValueError("give images or directory, one of them")
+    if images is None:
+        images = image_files(instances_path, directory)
+    return itertools.islice(images, limit) if limit else images
+
+
+def preprocess_images_to_embeddings_huggingface(
+        model_name: str, images: Optional[Iterable[Image]] = None,
+        directory: Optional[str] = None, instances_path: Optional[str] = None,
+        batch_size: int = 8, num_workers: int = 16,
+        outfolder: str = "data/processed/embeddings",
+        image_resolution: int = 480, custom_preprocess: bool = True,
+        dtype: Union[str, torch.dtype] = torch.bfloat16,
+        limit: Optional[int] = None,
+        device: Union[str, torch.device] = "cuda") -> float:
+    """Embed images with the plain ViT of a local Hugging Face checkpoint
+    directory ``model_name`` (``config.json`` and ``model.safetensors``, read
+    by the port's own reader, or ``pytorch_model.bin``; nothing is
+    downloaded), sized from its config, at ``image_resolution`` (the
+    position table interpolated as the JAX package does), on ``device``.
+    Writes ``{"embedding": (C, H, W)}`` caches; returns images a second
+    (reference: preprocess.py:210-258; JAX ``preprocess.py:224-284``)."""
+    from .api import load_weights_file
+    from .models.vit import StandardViT
+
+    ckpt = pathlib.Path(model_name)
+    with open(ckpt / "config.json") as f:
+        cfg = json.load(f)
+    weights = next((ckpt / n for n in ("model.safetensors",
+                                       "pytorch_model.bin")
+                    if (ckpt / n).exists()), None)
+    if weights is None:
+        raise FileNotFoundError(f"no weights under {ckpt}")
+    device = torch.device(device)
+    patch, width = cfg.get("patch_size", 16), cfg.get("hidden_size", 768)
+    with torch.device("meta"):
+        encoder = StandardViT(
+            patch_size=patch, embed_dim=width,
+            depth=cfg.get("num_hidden_layers", 12),
+            num_heads=cfg.get("num_attention_heads", 12),
+            mlp_ratio=cfg.get("intermediate_size", 3072) / width,
+            pretrain_grid=cfg.get("image_size", 224) // patch,
+            layernorm_eps=cfg.get("layer_norm_eps", 1e-12),
+            dtype=model_dtype(dtype))
+    encoder = encoder.to_empty(device=device).eval()
+    # a ViTModel's state dict but its pooler, which the encoder does not run
+    encoder.load_state_dict({k: v for k, v in load_weights_file(
+        str(weights)).items() if not k.startswith("pooler.")}, strict=True)
+    os.makedirs(outfolder, exist_ok=True)
+
+    def write_fn(image_id, emb):
+        save_st({"embedding": emb.transpose(2, 0, 1)},
+                os.path.join(outfolder, cache_name(image_id)))
+
+    return _stream_encode(_images(images, directory, instances_path, limit),
+                          image_size=image_resolution,
+                          custom_preprocess=custom_preprocess,
+                          batch_size=batch_size, num_workers=num_workers,
+                          encode_fn=encoder, write_fn=write_fn, device=device,
+                          log_label="hf images")
+
+
+PYRAMID_ENCODERS = ("resnet50", "swin_b")
+
+
+def load_pyramid_checkpoint(backbone: torch.nn.Module, encoder_name: str,
+                            checkpoint: str) -> None:
+    """A torchvision ResNet-50 or an original Swin-B checkpoint into the
+    pyramid backbone, through the key maps of PPNet's and DCAMA's
+    backbones (the JAX ``convert_ppnet_state_dict`` /
+    ``convert_dcama_state_dict``): the classifier and the tables the port
+    computes dropped. The Swin stage norms, which such a checkpoint does
+    not hold, take the identity (flax's initial values, which the JAX
+    extractor keeps)."""
+    from .api import load_weights_file
+    from .utils.weights import reference_baseline_state_dict
+
+    state = load_weights_file(checkpoint)
+    if encoder_name == "resnet50":
+        state = {f"resnet.{k}": v for k, v in state.items()
+                 if not k.startswith("fc.")}
+        backbone.load_state_dict(state, strict=True)
+        return
+    state = reference_baseline_state_dict(
+        "dcama", {f"feature_extractor.{k}": v for k, v in state.items()})
+    state = {"swin." + k[len("feature_extractor."):]: v
+             for k, v in state.items()}
+    for key, value in backbone.state_dict().items():
+        if key.startswith("norm_stage"):
+            state[key] = (torch.ones_like(value) if key.endswith("weight")
+                          else torch.zeros_like(value))
+    backbone.load_state_dict(state, strict=True)
+
+
+def preprocess_images_to_feature_pyramids(
+        encoder_name: str, images: Optional[Iterable[Image]] = None,
+        directory: Optional[str] = None, instances_path: Optional[str] = None,
+        batch_size: int = 4, num_workers: int = 16,
+        outfolder: str = "data/processed/pyramids",
+        image_resolution: int = 384, limit: Optional[int] = None,
+        checkpoint: Optional[str] = None,
+        device: Union[str, torch.device] = "cuda") -> float:
+    """Feature-pyramid caches ``{"stageN": (C, H, W)}`` of stages 2 to 4
+    of the ResNet-50 or Swin-B backbone (``models/pyramid_encoders.py``) in
+    fp32 on ``device``, from images resized as the embedding extractors
+    resize them (long side, then padding), its weights from ``checkpoint``
+    (:func:`load_pyramid_checkpoint`) or else seeded with 0 (reference: preprocess.py:262-322; JAX
+    ``preprocess.py:343-437``). The JAX package takes any other name to
+    ``transformers.AutoBackbone`` on the host, which the card's machine
+    does not have: here it is refused."""
+    if encoder_name not in PYRAMID_ENCODERS:
+        raise ValueError(f"encoder {encoder_name!r}: the feature-pyramid "
+                         f"extractor takes {' or '.join(PYRAMID_ENCODERS)} "
+                         f"(other backbones go through transformers' "
+                         f"AutoBackbone in the JAX package)")
+    device = torch.device(device)
+    out_features = ("stage2", "stage3", "stage4")
+    kwargs = {"out_features": out_features}
+    if encoder_name == "swin_b":
+        kwargs["image_size"] = image_resolution
+    with torch.device("meta"):
+        backbone = ENCODERS[encoder_name](**kwargs)
+    backbone = backbone.to_empty(device=device).eval()
+    if checkpoint:
+        load_pyramid_checkpoint(backbone, encoder_name, checkpoint)
+    else:
+        init_weights(backbone, 0)
+    os.makedirs(outfolder, exist_ok=True)
+
+    def encode_fn(x):
+        stages = backbone(x)
+        return tuple(stages[s] for s in out_features)
+
+    def write_fn(image_id, maps):
+        save_st({s: m.transpose(2, 0, 1) for s, m in zip(out_features, maps)},
+                os.path.join(outfolder, cache_name(image_id)))
+
+    return _stream_encode(_images(images, directory, instances_path, limit),
+                          image_size=image_resolution,
+                          custom_preprocess=True,
+                          batch_size=batch_size, num_workers=num_workers,
+                          encode_fn=encode_fn, write_fn=write_fn,
+                          device=device, log_label="pyramids")
 
 
 def generate_ground_truths(dataset_name: str, anns_path: str, outfolder: str,

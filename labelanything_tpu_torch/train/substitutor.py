@@ -39,13 +39,23 @@ def rotation_permutation(it: int, num_examples: int) -> Tuple[int, ...]:
     return (it,) + tuple(range(0, it)) + tuple(range(it + 1, num_examples))
 
 
+def _image_axis(value) -> torch.Tensor:
+    """A value's tensor with the image axis: a feature-pyramid cache's
+    (a dict of stages) first stage."""
+    return next(iter(value.values())) if isinstance(value, dict) else value
+
+
 def apply_permutation(batch: Batch, perm: Tuple[int, ...]) -> Batch:
-    """Permute the image axis of every exchangeable key."""
+    """Permute the image axis of every exchangeable key (of every stage of
+    a feature-pyramid cache)."""
     out = dict(batch)
     for key in _KEYS_TO_EXCHANGE:
         if key in out:
-            idx = torch.as_tensor(perm, device=out[key].device)
-            out[key] = out[key].index_select(1, idx)
+            idx = torch.as_tensor(perm, device=_image_axis(out[key]).device)
+            value = out[key]
+            out[key] = ({s: v.index_select(1, idx) for s, v in value.items()}
+                        if isinstance(value, dict)
+                        else value.index_select(1, idx))
     return out
 
 
@@ -177,7 +187,7 @@ class Substitutor:
     def num_examples(self) -> int:
         key = (BatchKeys.IMAGES if BatchKeys.IMAGES in self.batch
                else BatchKeys.EMBEDDINGS)
-        return self.batch[key].shape[1]
+        return _image_axis(self.batch[key]).shape[1]
 
     def __iter__(self):
         return self

@@ -67,6 +67,56 @@ _ENCODER_RENAMES: List[Tuple[str, str]] = [
     (r"(^|\.)neck_ln2\.", r"\1neck.3."),
 ]
 
+# the multi-level LAM's per-level lists and the is_pyramids neck
+_LAM_RENAMES: List[Tuple[str, str]] = [
+    (r"(^|\.)(prompt_encoders|mask_decoders)_(\d+)\.", r"\1\2.\3."),
+    (r"(^|\.)(fm|ce)_projector_(\d+)\.", r"\1\2_projectors.\3."),
+    (r"(^|\.)neck\.pyramid\.input_proj_(\d+)\.",
+     r"\1neck.0.input_projections.\2.0."),
+    (r"(^|\.)neck\.pyramid\.input_gn_(\d+)\.",
+     r"\1neck.0.input_projections.\2.1."),
+    (r"(^|\.)neck\.pyramid\.", r"\1neck.0."),
+    (r"(^|\.)neck\.ln\.", r"\1neck.1."),
+]
+
+# StandardViT's flax names -> Hugging Face ViTModel's
+_HF_VIT_INVERSE: List[Tuple[str, str]] = [
+    (r"^cls_token$", "embeddings.cls_token"),
+    (r"^pos_embed$", "embeddings.position_embeddings"),
+    (r"^patch_embed\.", "embeddings.patch_embeddings.projection."),
+    (r"^blocks_(\d+)\.q\.", r"encoder.layer.\1.attention.attention.query."),
+    (r"^blocks_(\d+)\.k\.", r"encoder.layer.\1.attention.attention.key."),
+    (r"^blocks_(\d+)\.v\.", r"encoder.layer.\1.attention.attention.value."),
+    (r"^blocks_(\d+)\.proj\.", r"encoder.layer.\1.attention.output.dense."),
+    (r"^blocks_(\d+)\.mlp\.lin1\.", r"encoder.layer.\1.intermediate.dense."),
+    (r"^blocks_(\d+)\.mlp\.lin2\.", r"encoder.layer.\1.output.dense."),
+    (r"^blocks_(\d+)\.norm1\.", r"encoder.layer.\1.layernorm_before."),
+    (r"^blocks_(\d+)\.norm2\.", r"encoder.layer.\1.layernorm_after."),
+    (r"^norm\.", "layernorm."),
+]
+
+# MixVisionTransformer's flax names -> Hugging Face SegformerModel's (the
+# fused ``kv`` is split apart in _mit_from_jax)
+_MIT_INVERSE: List[Tuple[str, str]] = [
+    (r"^patch_embed(\d)\.norm\.",
+     lambda m: f"encoder.patch_embeddings.{int(m.group(1)) - 1}.layer_norm."),
+    (r"^patch_embed(\d)\.proj\.",
+     lambda m: f"encoder.patch_embeddings.{int(m.group(1)) - 1}.proj."),
+    (r"^block(\d)_(\d+)\.",
+     lambda m: f"encoder.block.{int(m.group(1)) - 1}.{m.group(2)}."),
+    (r"^norm(\d)\.",
+     lambda m: f"encoder.layer_norm.{int(m.group(1)) - 1}."),
+    (r"\.norm1\.", ".layer_norm_1."),
+    (r"\.norm2\.", ".layer_norm_2."),
+    (r"\.attn\.q\.", ".attention.self.query."),
+    (r"\.attn\.sr_norm\.", ".attention.self.layer_norm."),
+    (r"\.attn\.sr\.", ".attention.self.sr."),
+    (r"\.attn\.proj\.", ".attention.output.dense."),
+    (r"\.mlp\.fc1\.", ".mlp.dense1."),
+    (r"\.mlp\.fc2\.", ".mlp.dense2."),
+    (r"\.mlp\.dwconv\.", ".mlp.dwconv.dwconv."),
+]
+
 _EMBEDDING_LEAVES = ("not_a_point_embed", "no_mask_embed", "not_a_mask_embed",
                      "no_sparse_embedding")
 
@@ -135,13 +185,97 @@ def _affinity_names(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+def _torch_layout(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
+    """(module path with torch's leaf name, value in torch's layout) of one
+    flax leaf: conv kernels (kh, kw, in, out) to (out, in, kh, kw), dense
+    kernels transposed, ``kernel`` and ``scale`` named ``weight``."""
+    value = np.asarray(value, np.float32)
+    leaf = path[-1]
+    if leaf == "kernel":
+        value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+    if leaf in ("kernel", "scale"):
+        path = path[:-1] + ("weight",)
+    return ".".join(path), np.ascontiguousarray(value)
+
+
+def _vit_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX ``StandardViT`` tree in Hugging Face ``ViTModel``'s names."""
+    out = {}
+    for path, value in _flatten(tree).items():
+        key, value = _torch_layout(path, value)
+        out[_apply_renames(key, _HF_VIT_INVERSE)] = value
+    return out
+
+
+def _mit_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX ``MixVisionTransformer`` tree in Hugging Face
+    ``SegformerModel``'s names; each fused ``kv`` projection split into
+    ``key`` (its first half of outputs) and ``value``."""
+    out = {}
+    for path, value in _flatten(tree).items():
+        key, value = _torch_layout(path, value)
+        key = _apply_renames(key, _MIT_INVERSE)
+        if ".attn.kv." in key:
+            half = value.shape[0] // 2
+            for name, part in (("key", value[:half]), ("value", value[half:])):
+                out[key.replace(".attn.kv.", f".attention.self.{name}.")] = \
+                    np.ascontiguousarray(part)
+        else:
+            out[key] = value
+    return out
+
+
+def _encoder_state(node: Dict[str, Any], stats: Dict[str, Any]):
+    """The port's state dict of a plain-ViT, MiT or pyramid-backbone tree,
+    or None for any other tree."""
+    if "cls_token" in node:
+        return _vit_from_jax(node)
+    if "patch_embed1" in node:
+        return _mit_from_jax(node)
+    if isinstance(node.get("resnet"), dict) and "layer1_0" in node["resnet"]:
+        return state_dict_from_jax_baseline(
+            "ppnet", {"params": node, "batch_stats": stats})
+    if isinstance(node.get("swin"), dict) and "patch_norm" in node["swin"]:
+        return state_dict_from_jax_baseline("dcama", {"params": node})
+    return None
+
+
+def _split_encoders(tree: Dict[str, Any], stats: Dict[str, Any],
+                    prefix: str = ""):
+    """(the tree without its plain-ViT, MiT and pyramid-backbone sub-trees,
+    those sub-trees in the port's names with their path as prefix)."""
+    part = _encoder_state(tree, stats)
+    if part is not None:
+        return {}, {prefix + k: v for k, v in part.items()}
+    rest, special = {}, {}
+    for name, node in tree.items():
+        if not isinstance(node, dict):
+            rest[name] = node
+            continue
+        sub_stats = stats.get(name, {}) if isinstance(stats, dict) else {}
+        rest[name], inner = _split_encoders(node, sub_stats,
+                                            f"{prefix}{name}.")
+        special.update(inner)
+    return rest, special
+
+
 def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Reference-layout state dict (CPU tensors) of a JAX parameter tree,
-    with or without the top-level ``{"params": ...}`` wrapper."""
-    state = _affinity_names(export_state_dict(params))
-    return {_apply_renames(key, _ENCODER_RENAMES):
-            torch.from_numpy(np.array(value, np.float32))
-            for key, value in state.items()}
+    with or without the top-level ``{"params": ...}`` wrapper (whose
+    ``batch_stats``, a ResNet-50 pyramid backbone's, are taken too). A
+    plain ViT or MiT encoder gets Hugging Face's names, a pyramid backbone
+    the names of the PPNet / DCAMA backbone it wraps, the multi-level
+    model's lists and the ``is_pyramids`` neck the port's."""
+    stats = params.get("batch_stats", {}) if "params" in params else {}
+    tree, special = _split_encoders(
+        params["params"] if "params" in params else params, stats)
+    state = _affinity_names(export_state_dict(tree))
+    out = {_apply_renames(_apply_renames(key, _ENCODER_RENAMES),
+                          _LAM_RENAMES):
+           torch.from_numpy(np.array(value, np.float32))
+           for key, value in state.items()}
+    out.update({k: torch.as_tensor(np.array(v)) for k, v in special.items()})
+    return out
 
 
 def reference_state_dict(state: Dict[str, Any],
@@ -153,7 +287,8 @@ def reference_state_dict(state: Dict[str, Any],
     state = {k: torch.as_tensor(np.asarray(v)) if not isinstance(
         v, torch.Tensor) else v for k, v in state.items()}
     known = set(model_keys)
-    return {key if key in known else _apply_renames(key, _ENCODER_RENAMES):
+    return {key if key in known else _apply_renames(
+                _apply_renames(key, _ENCODER_RENAMES), _LAM_RENAMES):
             value for key, value in _affinity_names(state).items()}
 
 

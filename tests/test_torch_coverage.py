@@ -3,11 +3,13 @@ configs may give, on the CPU:
 
 * every grid point's model block of each of the 100 files under
   ``parameters/`` builds through ``api.build_from_config`` (as ``Run``
-  builds it) on the meta device, except in the files of :data:`UNPORTED`,
-  each named with the ROADMAP A13 item that will unlock it; those must
-  still fail, so that a slice that ports one takes it off the list;
+  builds it) on the meta device; :data:`UNPORTED` names the files the port
+  could not build, each with the ROADMAP A13 item that would unlock it
+  (none is left), and those would have to fail;
 * the models of the 19 files of :data:`VARIANT_FILES` (the LAM variants)
-  hold as many parameters as the JAX package's at every grid point;
+  and of the 5 of :data:`LAST_FILES` (the plain ViTs, the multi-level
+  LAM on MiT-b0, the ``is_pyramids`` neck, the similarity baseline) hold
+  as many parameters as the JAX package's at every grid point;
 * ROADMAP C16: the port's ``norm_dtype`` reads every alias, numpy dtype
   name and None as the JAX ``norm_dtype`` does, and the model builders
   refuse a dtype that no kernel takes (float16) with an error naming it.
@@ -25,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from labelanything_tpu.models import build_lam as jbuild
+from labelanything_tpu.models.registry import model_registry as jregistry
 from labelanything_tpu_torch.api import build_from_config
 from labelanything_tpu_torch.models import build_lam as tbuild
 from labelanything_tpu_torch.utils.config import expand_experiment, load_yaml
@@ -36,14 +39,15 @@ PARAMETER_FILES = sorted(
     for p in (REPO / "parameters").rglob("*.yaml"))
 
 # the files whose models the port does not build yet, by ROADMAP A13 item
-_VITS = "A13.4: the plain ViTs of models/vit.py"
-UNPORTED = {
-    "trainval/coco20i/mae_noembs.yaml": _VITS,
-    "trainval/other/3_NewTraining_ViT.yaml": _VITS,
-    "trainval/other/COCO_multilevel.yaml": "A13.6: multilevel_lam",
-    "validation/COCO/cosine.yaml": "A13.6: similarity",
-    "trainval/pascal/PASCAL_256_pyramids.yaml": "A13.6: pyramids",
-}
+UNPORTED = {}
+# the last five files the port learnt to build (A13 items 4 and 6)
+LAST_FILES = (
+    "trainval/coco20i/mae_noembs.yaml",
+    "trainval/other/3_NewTraining_ViT.yaml",
+    "trainval/other/COCO_multilevel.yaml",
+    "validation/COCO/cosine.yaml",
+    "trainval/pascal/PASCAL_256_pyramids.yaml",
+)
 # the LAM variants: OneWay / Identity fusion, class_embedding_dim and
 # PrototypeAffinity, embeddings per example, TokenPool,
 # classification_levels, conv_classification, dropout
@@ -72,10 +76,9 @@ VARIANT_FILES = (
 
 def test_the_hundred_files():
     assert len(PARAMETER_FILES) == 100
-    assert set(UNPORTED) <= set(PARAMETER_FILES)
-    assert len(UNPORTED) == 5
-    assert len(set(VARIANT_FILES)) == 19
-    assert set(VARIANT_FILES) <= set(PARAMETER_FILES) - set(UNPORTED)
+    assert not UNPORTED
+    assert len(set(VARIANT_FILES)) == 19 and len(set(LAST_FILES)) == 5
+    assert set(VARIANT_FILES) | set(LAST_FILES) <= set(PARAMETER_FILES)
 
 
 def _blocks(path: str) -> dict:
@@ -86,12 +89,15 @@ def _blocks(path: str) -> dict:
 
 
 def _build_all(path: str) -> int:
-    """Build every distinct model block of the file's grid; their count."""
+    """Build every distinct model block of the file's grid; their count.
+    Every model holds parameters but the similarity baseline, which has
+    none."""
     blocks = _blocks(path)
     for block in blocks.values():
         with torch.device("meta"):
             model = build_from_config(block)
-        assert sum(p.numel() for p in model.parameters()) > 0
+        assert (sum(p.numel() for p in model.parameters()) > 0
+                or block["name"] == "similarity")
     return len(blocks)
 
 
@@ -148,6 +154,53 @@ def test_variant_parameter_counts_match_jax(path):
         args = {k: v for k, v in block.items()
                 if k not in ("name", "checkpoint")}
         assert ours == _jax_count(json.dumps(args, sort_keys=True)), block
+
+
+def _jax_count_any(block: dict) -> int:
+    """Parameters of the JAX model of any model block, from the shapes of
+    its ``init`` on an episode with mask prompts whose input the block
+    reads: images at ``image_size`` for an encoder, a stage-dict cache of
+    ResNet-50's stages 2 to 4 for ``is_pyramids``, 768-wide embeddings
+    on the grid otherwise (the similarity baseline)."""
+    args = {k: v for k, v in block.items() if k not in ("name",
+                                                        "checkpoint")}
+    model = jregistry[block["name"]](**args)
+    b, m, c, s = 1, 1, 2, args.get("image_size", 1024)
+    f32 = jnp.float32
+    batch = {
+        "prompt_masks": jax.ShapeDtypeStruct((b, m, c, s // 4, s // 4), f32),
+        "flag_masks": jax.ShapeDtypeStruct((b, m, c), jnp.int32),
+        "flag_examples": jax.ShapeDtypeStruct((b, m, c), jnp.int32),
+        "dims": jax.ShapeDtypeStruct((b, m + 1, 2), jnp.int32)}
+    if args.get("is_pyramids"):
+        g = s // args.get("vit_patch_size", 16)
+        batch["embeddings"] = {
+            f"stage{i + 2}": jax.ShapeDtypeStruct(
+                (b, m + 1, g >> i, g >> i, ch), f32)
+            for i, ch in enumerate(args["intermediate_channel_sizes"])}
+    elif block["name"] in ("lam_no_vit", "similarity"):
+        g = s // 16
+        batch["embeddings"] = jax.ShapeDtypeStruct(
+            (b, m + 1, g, g, args.get("image_embed_dim", 768)), f32)
+    else:
+        batch["images"] = jax.ShapeDtypeStruct((b, m + 1, s, s, 3), f32)
+    shapes = jax.eval_shape(model.init, jax.random.key(0), batch)
+    return sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
+
+
+@pytest.mark.parametrize("path", LAST_FILES)
+def test_last_files_parameter_counts_match_jax(path):
+    for block in _blocks(path).values():
+        with torch.device("meta"):
+            model = build_from_config(block)
+        ours = sum(p.numel() for p in model.parameters())
+        # the positional encodings' Gaussian matrices are parameters in
+        # JAX and buffers in the port, as in the reference
+        ours += sum(b.numel() for n, b in model.named_buffers()
+                    if n.endswith("positional_encoding_gaussian_matrix"))
+        assert ours == _jax_count_any(block), block
+        if block["name"] == "similarity":
+            assert ours == 0
 
 
 # ---- C16 ------------------------------------------------------------------- #

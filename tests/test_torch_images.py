@@ -300,6 +300,138 @@ def test_cli_generate_embeddings_reads_the_folder(image_root, tmp_path,
     assert tuple(cache.shape) == (32, 4, 4) and torch.isfinite(cache).all()
 
 
+def _hf_checkpoint(path: pathlib.Path) -> pathlib.Path:
+    """A seeded local Hugging Face ViT checkpoint directory: ``config.json``
+    and ``model.safetensors`` (with a pooler, which the extractors drop)
+    written by the port, a 2 x 2 pretraining grid."""
+    from labelanything_tpu_torch.models.vit import StandardViT
+    from labelanything_tpu_torch.utils.weights import init_weights
+
+    path.mkdir()
+    (path / "config.json").write_text(json.dumps(dict(
+        hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+        intermediate_size=64, image_size=32, patch_size=16,
+        layer_norm_eps=1e-12)))
+    vit = StandardViT(patch_size=16, embed_dim=32, depth=2, num_heads=2,
+                      mlp_ratio=2.0, pretrain_grid=2)
+    init_weights(vit, 4)
+    state = dict(vit.state_dict(), **{"pooler.dense.weight": torch.ones(32, 32),
+                                      "pooler.dense.bias": torch.ones(32)})
+    st.save_file(state, str(path / "model.safetensors"))
+    return path
+
+
+def _caches_close(ours: pathlib.Path, ref: pathlib.Path, keys,
+                  names=None) -> None:
+    """Six caches of ``ours`` within the fp32 tolerance of ``ref``'s, by
+    name, or ``names``: (ours, ref) pairs."""
+    if names is None:
+        names = [(n, n) for n in sorted(os.listdir(ref))]
+        assert sorted(os.listdir(ours)) == [n for n, _ in names]
+    assert len(names) == 6
+    for mine, theirs in names:
+        got = st.load_file(str(ours / mine))
+        want = st.load_file(str(ref / theirs))
+        assert sorted(got) == sorted(want) == sorted(keys)
+        for key in keys:
+            np.testing.assert_allclose(got[key].numpy(), want[key].numpy(),
+                                       rtol=1e-3, atol=5e-4,
+                                       err_msg=f"{mine} {key}")
+
+
+def test_cli_generate_embeddings_huggingface_matches_jax(image_root,
+                                                         tmp_path):
+    """The Hugging Face extractor on a seeded local checkpoint, fp32, at
+    64 px (the 2 x 2 position table interpolated to 4 x 4): the port writes
+    the JAX extractor's caches; its CLI (bf16) exits 0."""
+    import jax.numpy as jnp
+
+    ckpt = str(_hf_checkpoint(tmp_path / "vit"))
+    common = dict(directory=image_root["img_dir"],
+                  instances_path=image_root["instances_path"], batch_size=4,
+                  num_workers=2, image_resolution=64, limit=6)
+    jpre.preprocess_images_to_embeddings_huggingface(
+        ckpt, outfolder=str(tmp_path / "jax"), dtype=jnp.float32, **common)
+    preprocess.preprocess_images_to_embeddings_huggingface(
+        ckpt, outfolder=str(tmp_path / "port"), dtype=torch.float32,
+        device="cpu", **common)
+    _caches_close(tmp_path / "port", tmp_path / "jax", ["embedding"])
+    # the command as users run it (bf16, the JAX command's dtype)
+    assert cli.main([
+        "generate_embeddings_huggingface", "--model_name", ckpt,
+        "--directory", image_root["img_dir"], "--instances_path",
+        image_root["instances_path"], "--outfolder", str(tmp_path / "cli"),
+        "--image_resolution", "64", "--batch_size", "4", "--limit", "2",
+        "--device", "cpu"]) == 0
+    cache = st.load_file(str(tmp_path / "cli" / "000000000001.safetensors"))
+    assert tuple(cache["embedding"].shape) == (32, 4, 4)
+    ref = st.load_file(str(tmp_path / "jax" / "000000000001.safetensors"))
+    rel = (cache["embedding"] - ref["embedding"]).norm() / ref[
+        "embedding"].norm()
+    assert rel < 5e-2        # bf16 against fp32, as phase 25's caches
+
+
+def test_generate_feature_pyramids_matches_jax_and_c25(image_root, tmp_path,
+                                                       monkeypatch):
+    """ResNet-50's pyramid (its blocks cut to one a layer in both
+    packages) from a torchvision-layout ``.pth`` at 64 px, on a folder of
+    VOC-named JPEGs: stage 2 to 4 caches equal to the JAX extractor's. The
+    JAX extractor zero-fills the names to 12 characters
+    (``02007_000001``), where the PASCAL datasets of both packages read
+    ``<name>.safetensors``; the port names such a cache as the image, a
+    numeric id as JAX does (C25). The CLI (seeded weights) exits 0;
+    another backbone name is refused."""
+    from labelanything_tpu.models import build_encoder as jbe
+    from labelanything_tpu.models import pyramid_encoders as jpe
+    from labelanything_tpu_torch.models import pyramid_encoders as tpe
+    from labelanything_tpu_torch.utils.weights import init_weights
+
+    monkeypatch.setitem(jbe.ENCODERS, "resnet50", lambda **kw:
+                        jpe.build_resnet50(layers=(1, 1, 1, 1), **kw))
+    monkeypatch.setitem(ENCODERS, "resnet50", lambda **kw:
+                        tpe.build_resnet50(layers=(1, 1, 1, 1), **kw))
+    backbone = tpe.build_resnet50(layers=(1, 1, 1, 1))
+    init_weights(backbone, 5)
+    state = {k[len("resnet."):]: v for k, v in backbone.state_dict().items()}
+    state.update({"fc.weight": torch.ones(10, 2048), "fc.bias": torch.ones(10)})
+    pth = str(tmp_path / "resnet50.pth")
+    torch.save(state, pth)
+    folder = tmp_path / "JPEGImages"
+    folder.mkdir()
+    sources = sorted(pathlib.Path(image_root["img_dir"]).glob("*.jpg"))[:6]
+    names = [f"2007_00000{i}" for i in range(6)]
+    for name, src in zip(names, sources):
+        shutil.copy(src, folder / f"{name}.jpg")
+    common = dict(directory=str(folder), batch_size=4, image_resolution=64,
+                  checkpoint=pth)
+    jpre.preprocess_images_to_feature_pyramids(
+        "resnet50", outfolder=str(tmp_path / "jax"), **common)
+    preprocess.preprocess_images_to_feature_pyramids(
+        "resnet50", outfolder=str(tmp_path / "port"), num_workers=2,
+        device="cpu", **common)
+    assert sorted(os.listdir(tmp_path / "jax")) == [
+        f"0{n}.safetensors" for n in names]
+    assert sorted(os.listdir(tmp_path / "port")) == [
+        f"{n}.safetensors" for n in names]
+    assert preprocess.cache_name(42) == "000000000042.safetensors"
+    stages = ["stage2", "stage3", "stage4"]
+    _caches_close(tmp_path / "port", tmp_path / "jax", stages,
+                  [(f"{n}.safetensors", f"0{n}.safetensors") for n in names])
+
+    out = tmp_path / "cli"
+    assert cli.main(["generate_feature_pyramids", "--encoder", "resnet50",
+                     "--directory", image_root["img_dir"], "--instances_path",
+                     image_root["instances_path"], "--outfolder", str(out),
+                     "--image_resolution", "64", "--limit", "2",
+                     "--device", "cpu"]) == 0
+    cache = st.load_file(str(out / "000000000002.safetensors"))
+    assert [tuple(cache[s].shape) for s in stages] == [
+        (512, 8, 8), (1024, 4, 4), (2048, 2, 2)]
+    with pytest.raises(ValueError, match="resnet50 or swin_b"):
+        preprocess.preprocess_images_to_feature_pyramids(
+            "microsoft/resnet-50", images=[], device="cpu")
+
+
 # ---- the episode engines ---------------------------------------------------- #
 
 class _JaxUint8(jds.LabelAnythingDataset):

@@ -373,9 +373,16 @@ def test_vit_large_layouts_match_jax(name, embed, depth, heads, global_at):
 
 
 def test_registry_covers_the_large_encoders(monkeypatch):
-    assert {"lam", "lam_no_vit", "lam_b", "lam_l", "lam_h", "panet", "ppnet",
-            "denet", "bam", "hdmnet", "dcama", "fptrans"} == set(model_registry)
-    assert sorted(tbe.ENCODERS) == ["vit_b", "vit_h", "vit_l"]
+    # the JAX registry's names but item 7's of ROADMAP A13, and, as there,
+    # the encoders
+    assert {"lam", "lam_no_vit", "lam_b", "lam_l", "lam_h", "lam_mae_b",
+            "lam_dino_b8", "lam_b_imagenet_i21k", "multilevel_lam",
+            "similarity", "panet", "ppnet", "denet", "bam", "hdmnet", "dcama",
+            "fptrans"} | set(tbe.ENCODERS) == set(model_registry)
+    assert sorted(tbe.ENCODERS) == [
+        "mit_b0", "nvidia/segformer-b0-finetuned-ade-512-512", "resnet50",
+        "swin_b", "vit_b", "vit_b_imagenet_i21k", "vit_b_mae", "vit_dino_b8",
+        "vit_h", "vit_l"]
     for name, factory in (("lam_l", "build_vit_l"), ("lam_h", "build_vit_h")):
         seen = {}
 
